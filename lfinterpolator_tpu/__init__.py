@@ -1,21 +1,13 @@
-"""lfinterpolator_tpu — TPU-native light-field view interpolation.
+"""lfinterpolator_tpu — light-field view interpolation in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ichlubna/lfInterpolator (CUDA): load a camera-grid light field, synthesize 64
 novel views along a trajectory by shift-and-sum weighted blending (expressed
-as MXU matmuls), with optional per-pixel focus-map estimation for all-in-focus
-rendering.
+as one GEMM over the grid images), with optional per-pixel focus-map
+estimation for all-in-focus rendering. On the GPU the disparity search runs
+as a Pallas-Triton kernel (ops/estimate_triton.py). The entry points place
+XLA's persistent compilation cache through utils/compile_cache.py.
 """
-
-import os as _os
-
-# Persistent XLA compilation cache: repeated CLI invocations with the same
-# shapes skip the (slow) TPU compile. Opt out with LFI_NO_COMPILE_CACHE=1.
-if not _os.environ.get("LFI_NO_COMPILE_CACHE"):
-    _os.environ.setdefault(
-        "JAX_COMPILATION_CACHE_DIR",
-        _os.path.join(_os.path.expanduser("~"), ".cache", "lfinterpolator_tpu"),
-    )
 
 from .core.config import RenderConfig
 

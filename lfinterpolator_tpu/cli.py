@@ -14,8 +14,7 @@ Extensions beyond the reference:
   -b/--bench-runs N   time N repetitions of the render step and print the
                       average (the reference always times 100)
   --quilt             also write a 5x9 quilt.png (viewsToQuilt.sh equivalent)
-  --quilt-only        write ONLY quilt.png via the fused direct-to-canvas
-                      route when supported (blends just the 45 placed views)
+  --quilt-only        write ONLY quilt.png (no per-view PNGs)
   --json              print a machine-readable summary line
   --reference-order   reproduce the reference binary's transposed grid
                       placement (src/lfLoader.cpp:64) for output comparisons
@@ -35,8 +34,8 @@ Example: lfi-interpolate -i /MyAmazingMachine/thoseImages -t 0.0,0.0,1.0,1.0 -o 
 -s - the amount of the spatial 3D effect - affects how much are views close to the virtual one prioritized (default=3.0)
 -a - aspect ratio of the spacing of the capturing cameras in the grid (horizontal/vertical space) (default=1)
 -m - interpolation method:
-     STD - pure-XLA interpolation path
-     TEN_WM - fused Pallas MXU path (tensor-core equivalent)
+     STD - float32 blend
+     TEN_WM - fp16 tensor-core blend with float32 accumulation
 The following arguments are normalized offsets of the images in shift & sum
 -f - focusing value (default=0)
 -r - focusing range (will be added to the focusing value) - will produce all-focused result if used
@@ -64,21 +63,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--fast-focus", action="store_true",
-        help="~5x faster focus estimation; may flip the chosen focus level "
-             "in a narrow band at per-view coordinate sign changes "
-             "(44.3 dB vs the exact oracle on the structured bench scene)",
-    )
-    p.add_argument(
-        "--focus-pyramid", action="store_true",
-        help="coarse-to-fine focus estimation: full sweep at half "
-             "resolution, then a per-block-narrowed full-res refine. "
-             "Measured SLOWER than the exact sweep at every tested "
-             "config (clamp-edge argmin noise keeps candidate windows "
-             "near-full; see PARITY.md) — kept as a documented "
-             "approximate mode. Pixels whose best focus lies outside "
-             "their block's coarse window get the nearest scanned level "
-             "(exact-taps path only; unsupported routes fall back to "
-             "the exact sweep)",
+        help="approximate focus tap rule: truncates each stencil tap at its "
+             "own position, which may flip the chosen focus level in a "
+             "narrow band at per-view coordinate sign changes (44.3 dB vs "
+             "the exact oracle on the structured bench scene)",
     )
     p.add_argument(
         "--reference-order", action="store_true",
@@ -88,11 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quilt", action="store_true")
     p.add_argument(
         "--quilt-only", action="store_true",
-        help="write ONLY quilt.png (no per-view PNGs). Fixed-focus TEN "
-             "renders take the fused direct-to-canvas route: just the 45 "
-             "placed views are blended, straight into the canvas (measured "
-             "3.55 ms vs 5.50 two-stage at 8x8/1080p); other configs fall "
-             "back to the byte-identical two-stage path",
+        help="write ONLY quilt.png (no per-view PNGs)",
     )
     p.add_argument(
         "--quilt-tile", dest="quilt_tile", metavar="HxW", default=None,
@@ -124,6 +108,9 @@ def main(argv: list[str] | None = None) -> int:
     from .core import geometry
     from .core.config import RenderConfig
     from .io.loader import load_light_field
+    from .utils import compile_cache
+
+    compile_cache.enable()
 
     progress = not args.no_progress and not args.json_out
     # Validate quilt geometry BEFORE the render: a bad --quilt-tile must
@@ -146,7 +133,6 @@ def main(argv: list[str] | None = None) -> int:
             method=args.method, effect=args.effect, aspect=args.aspect,
             focus_map_views=args.focus_views,
             exact_focus_taps=not args.fast_focus,
-            focus_pyramid=args.focus_pyramid,
         )
         config.validate()
         geometry.parse_trajectory(args.trajectory, (2, 2))  # format check
@@ -177,7 +163,6 @@ def main(argv: list[str] | None = None) -> int:
                                 int(qres.quilt.shape[0]),
                             ],
                             "method": qres.config.method,
-                            "fused": qres.fused,
                             "avg_ms": qres.avg_ms,
                             "files_written": len(written),
                         }

@@ -17,7 +17,7 @@ class RenderConfig:
     CLI-facing fields mirror the reference flags (reference: src/main.cpp:7-43):
       focus       -> -f (default 0)
       focus_range -> -r (default 0; >0 enables the per-pixel focus map)
-      method      -> -m ("STD" = pure-XLA path, "TEN" / "TEN_WM" = fused Pallas MXU path)
+      method      -> -m ("STD" = float32 blend, "TEN" / "TEN_WM" = fp16 tensor-core blend)
       effect      -> -s (default 3.0, values <= 0 coerced to 3.0, src/main.cpp:31-33)
       aspect      -> -a (default 1.0, values <= 0 coerced to 1.0, src/main.cpp:35-37)
     """
@@ -46,36 +46,21 @@ class RenderConfig:
     # (src/kernels.cu:266-268).
     filter_radius_divisor: int = 10
     # Exact per-pixel truncation at every disparity-search stencil tap
-    # (bit-identical to the reference kernel). False trades a radius-wide
-    # band of possible argmin flips at coordinate sign changes for ~5x
-    # faster estimation (see ops/focus.py).
+    # (bit-identical to the reference kernel). False evaluates the
+    # truncation at each tap's own position, which can flip the argmin in
+    # a radius-wide band at coordinate sign changes (see ops/focus.py).
     exact_focus_taps: bool = True
-    # Coarse-to-fine disparity pyramid (cli --focus-pyramid): full candidate
-    # sweep at half resolution, presence-predicated refine at full res
-    # (ops/estimate_pallas.estimate_fused_pyramid). APPROXIMATE: a pixel
-    # whose global best lies outside its block's [coarse min-1, max+1]
-    # window gets the best scanned candidate instead. Exact-taps fused
-    # route only; unsupported geometries/routes fall back to the exact
-    # sweep. No reference analogue (full sweep always,
-    # src/kernels.cu:239-258).
-    focus_pyramid: bool = False
     # Streaming-only (cli --map-refresh): re-estimate the focus maps every
-    # N frames; frames in between blend with the most recent maps. The
-    # exact estimate is 82-84% of every streaming all-focus frame
-    # (measured, c8); N=8 measured 3.43x streaming fps at 8x8/1080p
-    # (3.10 -> 10.62 fps, bench c8_refresh_allfocus_1080). APPROXIMATE for
-    # N > 1: stale maps cost dB proportional to DEPTH motion
-    # (scripts/map_refresh_quality.py -- N=4/8 mean 29.9/27.7 dB on a
-    # 96x128 scene with occluders drifting 2 px/frame, 32.6/31.3 dB at
+    # N frames; frames in between blend with the most recent maps.
+    # APPROXIMATE for N > 1: stale maps cost dB proportional to DEPTH
+    # motion (scripts/map_refresh_quality.py -- N=4/8 mean 29.9/27.7 dB on
+    # a 96x128 scene with occluders drifting 2 px/frame, 32.6/31.3 dB at
     # 0.5 px/frame; refresh frames are bit-exact). 1 = per-frame
     # estimation, the reference's per-run flow (src/interpolator.cu:
     # 261-266). Ignored outside StreamingRenderer.
     focus_map_refresh: int = 1
-    # (Kernel chunk sizes are chosen by ops.blend_pallas._auto_chunk from the
-    # grid size, resolution, and view count -- they are a VMEM-budget
-    # decision, not a user knob. Benchmark repetitions are the CLI -b /
-    # api benchmark_runs parameter; the reference hard-codes 100,
-    # src/interpolator.h:13.)
+    # (Benchmark repetitions are the CLI -b / api benchmark_runs parameter;
+    # the reference hard-codes 100, src/interpolator.h:13.)
 
     def __post_init__(self):
         # The reference coerces non-positive -s / -a to their defaults

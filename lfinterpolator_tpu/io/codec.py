@@ -235,14 +235,17 @@ def encode_batch_png(
     return True
 
 
+_NO_CODEC = (
+    "No image codec available: build the native codec (make -C native) "
+    "or install Pillow."
+)
+
+
 def _decode_pil(path: str) -> np.ndarray:
     try:
         from PIL import Image
-    except ImportError as e:  # pragma: no cover
-        raise RuntimeError(
-            "No image codec available: build the native codec (make -C native) "
-            "or install Pillow."
-        ) from e
+    except ImportError as e:
+        raise RuntimeError(_NO_CODEC) from e
     try:
         with Image.open(path) as im:
             return np.asarray(im.convert("RGBA"), dtype=np.uint8)
@@ -266,7 +269,10 @@ def encode_png(path: str, image: np.ndarray) -> None:
 
 
 def _encode_pil(path: str, image: np.ndarray) -> None:
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(_NO_CODEC) from e
 
     mode = {1: "L", 3: "RGB", 4: "RGBA"}[image.shape[2]]
     # encode_png always produces PNG bytes; the extension may be a staging

@@ -1,6 +1,6 @@
 """Light-field dataset ingest.
 
-TPU-native equivalent of the reference's LfLoader (reference:
+Equivalent of the reference's LfLoader (reference:
 src/lfLoader.cpp:8-67): scan a directory of images named ``col_row.ext``,
 infer the grid dimensions, decode every image, and produce one contiguous
 uint8 stack ready for a single host->device transfer.

@@ -2,14 +2,14 @@
 
 This is the device-side equivalent of the reference's Interpolator::interpolate
 orchestration (reference: src/interpolator.cu:248-297): optional focus-map
-estimate + filter, then the blend kernel, in one jit so XLA fuses across
-stages. Method dispatch mirrors the reference:
+estimate + filter, then the blend, in one jit so XLA fuses across stages.
+Method dispatch mirrors the reference:
 
-  * "STD"    -> pure-XLA blend (shift via pad+slice, blend via one einsum);
-                per-pixel focus reads the FILTERED map (src/kernels.cu:326)
-  * "TEN"    -> fused Pallas MXU kernel (the tensor-core path's equivalent,
-                src/kernels.cu:398-461); per-pixel focus reads the RAW map
-                (src/kernels.cu:430). Falls back to the XLA blend off-TPU.
+  * "STD" -> float32 blend at HIGHEST precision; per-pixel focus reads the
+             FILTERED map (src/kernels.cu:326)
+  * "TEN" -> fp16-operand blend with float32 accumulation on the tensor
+             cores (the reference's TEN_WM GEMM, src/kernels.cu:398-461);
+             per-pixel focus reads the RAW map (src/kernels.cu:430)
 
 Everything that changes per interpolate() call (trajectory, focus, weights,
 offsets) is a traced argument -- switching them does not recompile. Only
@@ -24,13 +24,6 @@ import jax
 import jax.numpy as jnp
 
 from ..ops import blend_xla, focus as focus_ops
-from ..ops import blend_pallas
-
-
-def _blend_fixed(images, weights, focused_offsets, method):
-    if method in ("TEN", "TEN_WM") and blend_pallas.is_available():
-        return blend_pallas.render_fixed(images, weights, focused_offsets)
-    return blend_xla.render_fixed(images, weights, focused_offsets)
 
 
 @partial(jax.jit, static_argnames=("method",))
@@ -42,15 +35,12 @@ def render_fixed_focus(
     method: str = "STD",
 ) -> jnp.ndarray:
     """Fixed-focus render -> [V, C, H, W] uint8."""
-    return _blend_fixed(images, weights, focused_offsets, method)
+    return blend_xla.render_fixed(images, weights, focused_offsets, method)
 
 
 @partial(
     jax.jit,
-    static_argnames=(
-        "radius", "filter_radius", "steps", "pad", "exact_taps", "spans",
-        "pyramid",
-    ),
+    static_argnames=("radius", "filter_radius", "steps", "pad", "exact_taps"),
 )
 def compute_focus_maps(
     images: jnp.ndarray,  # [G, C, H, W] uint8
@@ -64,87 +54,53 @@ def compute_focus_maps(
     steps: int = 32,
     pad: tuple[int, int] | None = None,
     exact_taps: bool = True,
-    spans: tuple[int, int] | None = None,
-    pyramid: tuple[int, int] | None = None,
 ) -> jnp.ndarray:
     """Estimate + filter -> maps [2, H, W] uint8 (raw, filtered).
 
     The view-independent first half of render_all_focus, callable on its
     own so view-batched renders (api.py) estimate once and blend per
-    weight-row batch. `pyramid` = (scale, refine) requests the APPROXIMATE
-    coarse-to-fine estimate (cli --focus-pyramid; falls back to the exact
-    sweep when the geometry/route doesn't support it).
+    weight-row batch.
     """
     selected = images[focus_ids]  # [K, C, H, W]
     sel_offsets = offsets[focus_ids]
     map0 = focus_ops.estimate_focus_map(
         selected, sel_offsets, focus, focus_range, radius,
-        steps=steps, pad=pad, exact_taps=exact_taps, spans=spans,
-        pyramid=pyramid,
+        steps=steps, pad=pad, exact_taps=exact_taps,
     )
     map1 = focus_ops.filter_focus_map(map0, filter_radius)
     return jnp.stack([map0, map1])
 
 
-def allfocus_uses_fused_blend(
-    method: str, h: int, w: int, spread: int | None
-) -> bool:
-    """Whether blend_all_focus routes this config through the fused Pallas
-    allFocus kernel. BOTH methods since round 5: STD runs the kernel's
-    256-byte-level mode on the filtered map (byte_levels), measured 3.4-5x
-    the XLA presence scan on realistic dense-byte maps (367 -> 101 ms at
-    4x4/1080p with 241 distinct bytes, 1597 -> 319 at 8x8/221 bytes) and
-    bit-identical; the round-2 measurement that kept STD on XLA (519 vs
-    156 ms) predates the locked-plane scene fix and the round-3 kernel
-    op reductions and does not reproduce. Shared with capacity planning
-    and the view-batched path so the plan's arithmetic always matches the
-    engine that actually runs."""
-    if spread is None:
-        return False
-    from ..ops import allfocus_pallas
-
-    return blend_pallas.is_available() and allfocus_pallas.supports(
-        h, w, spread
-    )
-
-
-@partial(jax.jit, static_argnames=("method", "steps", "pad", "spread"))
+@partial(jax.jit, static_argnames=("method", "row_count"))
 def select_allfocus(
     images: jnp.ndarray,  # [G, C, H, W] uint8
     offsets: jnp.ndarray,  # [G, 2] float32 (x, y)
     maps: jnp.ndarray,  # [2, H, W] uint8 (from compute_focus_maps)
     focus: jnp.ndarray,  # scalar f32
     focus_range: jnp.ndarray,  # scalar f32
+    row_start: jnp.ndarray | int = 0,
     *,
     method: str = "STD",
-    steps: int = 32,
-    pad: tuple[int, int] | None = None,
-    spread: int | None = None,
+    row_count: int | None = None,
 ) -> jnp.ndarray:
     """The weight-independent SELECT stage of blend_all_focus: every image
-    shifted by its pixel's focus level.
+    shifted by its pixel's focus -> [G, C, rows, W] uint8.
 
-    Returns the stack blend_selected contracts: [G, C, H8, W128] uint8 in
-    the blend_tiled operand tiling when allfocus_uses_fused_blend, else
-    [G, C, H, W] uint8. View-batched renders (api.py) call this once and
-    blend per weight-row batch; blend_selected(select_allfocus(...)) is
-    bit-identical to blend_all_focus(...) by construction (same underlying
-    select + blend functions, split at the same seam)."""
-    g, c, h, w = images.shape
-    map0, map1 = maps[0], maps[1]
-    fmap = map1 if method == "STD" else map0  # the reference's asymmetry
-    if allfocus_uses_fused_blend(method, h, w, spread):
-        from ..ops import allfocus_pallas
-
-        return allfocus_pallas.select_allfocus_quantized(
-            images, offsets, fmap, focus, focus_range,
-            steps=steps, spread=spread,
-            px=pad[0] if pad is not None else max(w, 1),
-            all_bytes=(method == "STD"),
-        )
+    The map follows the reference's method asymmetry (STD: filtered map,
+    TEN: raw map). `row_start`/`row_count` select one block of output rows
+    (memory-pressured renders select block by block). View-batched renders
+    (api.py) call this once per block and blend per weight-row batch;
+    blend_selected(select_allfocus(...)) is bit-identical to
+    blend_all_focus(...) by construction."""
+    h, w = maps.shape[1:]
+    rows = h if row_count is None else row_count
+    fmap = maps[1] if method == "STD" else maps[0]
+    fmap = jax.lax.dynamic_slice(
+        fmap, (jnp.asarray(row_start, jnp.int32), jnp.int32(0)), (rows, w)
+    )
     return blend_xla.allfocus_selected(
-        images, offsets, fmap, focus, focus_range, steps=steps, pad=pad,
-        all_bytes=(method == "STD"),
+        images, offsets, fmap, focus, focus_range,
+        row_start=row_start, row_count=rows,
     )
 
 
@@ -169,9 +125,7 @@ def _row_slab(stack, r0, *, py, px, rc, top, bot):
 
 @partial(
     jax.jit,
-    static_argnames=(
-        "radius", "steps", "pad", "exact_taps", "rc", "top", "bot", "spans",
-    ),
+    static_argnames=("radius", "steps", "pad", "exact_taps", "rc", "top", "bot"),
 )
 def estimate_focus_rows(
     selected: jnp.ndarray,  # [K, C, H, W] uint8 (the focus views)
@@ -187,49 +141,23 @@ def estimate_focus_rows(
     rc: int,
     top: int,  # rows of the block's pad window clipped at the top edge
     bot: int,  # ... at the bottom edge
-    spans: tuple[int, int] | None = None,
 ) -> jnp.ndarray:
     """The disparity-search estimate for ONE row block, padding only the
     rows the block's shifts read -> [rc, W] uint8 map block.
 
-    Mirrors select_allfocus_rows: the full edge-pad's rows [r0, r0+rc+2py)
-    are rebuilt from the selected views as slice + edge-pad(top, bot). The
-    pads use estimate_focus_map's effective floors max(pad, radius+1), and
-    top/bot must be computed against the same floors (api.py does). With
-    `spans` given (and the fused kernels available + supporting this block
-    geometry -- the capacity plan's estimate_fused flag gates the call,
-    since the fused operand is a bigger resident than the XLA sweep's
-    temporaries) the block runs through the fused SWAR kernels' slab mode,
-    with the padded operand built DIRECTLY from the raw stack
-    (estimate_pallas.window_slab -- one slab-sized buffer per block);
-    without, the XLA estimate runs over the _row_slab window. Either way
-    bit-identical to the same rows of the full estimate."""
+    The full edge-pad's rows [r0, r0+rc+2py) are rebuilt from the selected
+    views as slice + edge-pad(top, bot). The pads use estimate_focus_map's
+    effective floors max(pad, radius+1), and top/bot must be computed
+    against the same floors (api.py does). Bit-identical to the same rows
+    of the full estimate."""
     rx, ry = int(radius[0]), int(radius[1])
     px, py = max(int(pad[0]), rx + 1), max(int(pad[1]), ry + 1)
     r0 = jnp.asarray(r0, jnp.int32)
-    from ..ops import blend_pallas, estimate_pallas
-    from ..ops import focus as focus_ops
-
-    use_fused = spans is not None and blend_pallas.is_available() and (
-        estimate_pallas.supports if exact_taps else
-        estimate_pallas.supports_fast
-    )(rc, selected.shape[3], selected.shape[0], steps, radius,
-      spans[0], spans[1])
-    if use_fused:
-        hp, wp = estimate_pallas.slab_dims(
-            rc, selected.shape[3], selected.shape[0], steps, radius,
-            spans[0], spans[1], pad[0], pad[1], exact_taps=exact_taps,
-        )
-        slab = estimate_pallas.window_slab(
-            selected, r0, px=px, py=py, rc=rc, top=top, bot=bot,
-            hp=hp, wp=wp,
-        )
-    else:
-        slab = _row_slab(selected, r0, py=py, px=px, rc=rc, top=top, bot=bot)
+    slab = _row_slab(selected, r0, py=py, px=px, rc=rc, top=top, bot=bot)
     return focus_ops.estimate_focus_map(
         selected, sel_offsets, focus, focus_range, radius,
         steps=steps, pad=pad, row_count=rc, exact_taps=exact_taps,
-        slab=slab, coord_row0=r0, spans=spans,
+        slab=slab, coord_row0=r0,
     )
 
 
@@ -244,97 +172,19 @@ def assemble_focus_maps(
     return jnp.stack([map0, map1])
 
 
-@partial(jax.jit, static_argnames=("method", "steps", "pad", "rc", "top", "bot"))
-def select_allfocus_rows(
-    images: jnp.ndarray,  # [G, C, H, W] uint8 (raw stack)
-    offsets: jnp.ndarray,  # [G, 2] float32 (x, y)
-    maps: jnp.ndarray,  # [2, H, W] uint8
-    focus: jnp.ndarray,
-    focus_range: jnp.ndarray,
-    r0: jnp.ndarray | int,  # global first output row of the block
-    *,
-    method: str,
-    steps: int,
-    pad: tuple[int, int],
-    rc: int,  # block output rows
-    top: int,  # rows of the block's pad window clipped at the top edge
-    bot: int,  # ... at the bottom edge
-) -> jnp.ndarray:
-    """select_allfocus's XLA branch for ONE row block, padding only the
-    rows the block's shifts read -> [G, C, rc, W] uint8.
-
-    The full edge-pad's rows [r0, r0 + rc + 2py) are rebuilt from the raw
-    stack as slice + edge-pad(top, bot) (identical bytes: the clipped rows
-    replicate image row 0 / H-1 exactly like the full pad), so renders
-    whose select phase outgrows HBM (e.g. STD all-focus at 8K) run
-    block-by-block without ever materializing the full padded copy.
-    top/bot are static (at most three compiled shapes: first, interior,
-    last); r0 is traced. Bit-identical to the same rows of
-    select_allfocus."""
-    g, c, h, w = images.shape
-    px, py = max(int(pad[0]), 1), max(int(pad[1]), 1)
-    r0 = jnp.asarray(r0, jnp.int32)
-    slab = _row_slab(images, r0, py=py, px=px, rc=rc, top=top, bot=bot)
-    map_blk = jax.lax.dynamic_slice(
-        maps, (jnp.int32(0), r0, jnp.int32(0)), (2, rc, w)
-    )
-    fmap = map_blk[1] if method == "STD" else map_blk[0]
-    return blend_xla.allfocus_selected(
-        images, offsets, fmap, focus, focus_range,
-        steps=steps, pad=pad, row_count=rc,
-        all_bytes=(method == "STD"), slab=slab, coord_row0=r0,
-    )
-
-
-@partial(jax.jit, static_argnames=("steps", "spread", "px", "h", "w", "method"))
-def select_allfocus_pretiled(
-    tiled: jnp.ndarray,  # [G, C, H8, W128] uint8 (shift_pallas.pad_to_tiles)
-    offsets: jnp.ndarray,  # [G, 2] float32 (x, y)
-    maps: jnp.ndarray,  # [2, H, W] uint8
-    focus: jnp.ndarray,
-    focus_range: jnp.ndarray,
-    *,
-    steps: int,
-    spread: int,
-    px: int,
-    h: int,
-    w: int,
-    method: str = "TEN",
-) -> jnp.ndarray:
-    """select_allfocus's fused-kernel branch over an EXISTING tiled stack.
-
-    Memory-pressured view-batched renders (api.py) build the tiled copy,
-    drop the raw device stack, then select here -- the raw stack and the
-    x4 output never coexist. Map/level-set choice follows the reference's
-    method asymmetry like select_allfocus (TEN: raw map + `steps` levels;
-    STD: filtered map + all 256 byte levels)."""
-    from ..ops import allfocus_pallas
-
-    fmap = maps[1] if method == "STD" else maps[0]
-    return allfocus_pallas.select_allfocus_quantized(
-        tiled, offsets, fmap, focus, focus_range,
-        steps=steps, spread=spread, px=px, pre_tiled=True, h=h, w=w,
-        all_bytes=(method == "STD"),
-    )
-
-
-@partial(jax.jit, static_argnames=("tiled", "h", "w"))
+@partial(jax.jit, static_argnames=("method",))
 def blend_selected(
     selected: jnp.ndarray,  # select_allfocus output
     weights: jnp.ndarray,  # [Vb, G] float32
     *,
-    tiled: bool,  # allfocus_uses_fused_blend(...) of the select call
-    h: int,
-    w: int,
+    method: str = "STD",
 ) -> jnp.ndarray:
     """Blend one weight-row batch against a select_allfocus stack
-    -> [Vb, C, h, w] uint8."""
-    if tiled:
-        return blend_pallas.blend_tiled_cropped(selected, weights, h=h, w=w)
-    return blend_xla.blend_fast(selected, weights)
+    -> [Vb, C, rows, W] uint8."""
+    return blend_xla.blend(selected, weights, method)
 
 
-@partial(jax.jit, static_argnames=("method", "steps", "pad", "spread"))
+@partial(jax.jit, static_argnames=("method",))
 def blend_all_focus(
     images: jnp.ndarray,  # [G, C, H, W] uint8
     weights: jnp.ndarray,  # [V, G] float32
@@ -344,53 +194,17 @@ def blend_all_focus(
     focus_range: jnp.ndarray,  # scalar f32
     *,
     method: str = "STD",
-    steps: int = 32,
-    pad: tuple[int, int] | None = None,
-    spread: int | None = None,
 ) -> jnp.ndarray:
     """Per-pixel-focus blend -> views [V, C, H, W] uint8.
 
     The view-dependent second half of render_all_focus; see its docstring
     for the method dispatch and the reference's raw/filtered map asymmetry.
     """
-    map0, map1 = maps[0], maps[1]
-    g, c, h, w = images.shape
-    use_kernel = allfocus_uses_fused_blend(method, h, w, spread)
-    if method == "STD":
-        # The filtered map has arbitrary bytes; both engines scan all 256
-        # byte values, exact for any map, absent bytes skipped at runtime
-        # (the general gather fallback is ~5-25x slower on TPU). Round 5:
-        # the fused kernel's 256-level mode replaced the XLA scan where
-        # supported -- on realistic dense-byte filtered maps it measured
-        # 3.4-5x faster (see allfocus_uses_fused_blend), bit-identical.
-        if use_kernel:
-            from ..ops import allfocus_pallas
-
-            return allfocus_pallas.render_allfocus_quantized_fused(
-                images, weights, offsets, map1, focus, focus_range,
-                steps=steps, spread=spread,
-                px=pad[0] if pad is not None else max(w, 1),
-                all_bytes=True,
-            )
-        if pad is not None:
-            return blend_xla.render_allfocus_quantized(
-                images, weights, offsets, map1, focus, focus_range,
-                steps=steps, pad=pad, all_bytes=True,
-            )
-        return blend_xla.render_allfocus(
-            images, weights, offsets, map1, focus, focus_range
-        )
-    if use_kernel:
-        from ..ops import allfocus_pallas
-
-        return allfocus_pallas.render_allfocus_quantized_fused(
-            images, weights, offsets, map0, focus, focus_range,
-            steps=steps, spread=spread,
-            px=pad[0] if pad is not None else max(w, 1),
-        )
-    return blend_xla.render_allfocus_quantized(
-        images, weights, offsets, map0, focus, focus_range,
-        steps=steps, pad=pad,
+    return blend_xla.blend(
+        select_allfocus(
+            images, offsets, maps, focus, focus_range, method=method
+        ),
+        weights, method,
     )
 
 
@@ -398,7 +212,6 @@ def blend_all_focus(
     jax.jit,
     static_argnames=(
         "method", "radius", "filter_radius", "steps", "pad", "exact_taps",
-        "spread", "spans", "pyramid",
     ),
 )
 def render_all_focus(
@@ -415,40 +228,24 @@ def render_all_focus(
     steps: int = 32,
     pad: tuple[int, int] | None = None,
     exact_taps: bool = True,
-    spread: int | None = None,
-    spans: tuple[int, int] | None = None,
-    pyramid: tuple[int, int] | None = None,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """All-in-focus render: estimate -> filter -> per-pixel blend.
 
     `pad` is the static shift bound from focus_ops.shift_pad_bound (enables
-    the pre-padded fast path of the estimator). `spread` is the static
-    row-span bound from allfocus_pallas.spread_bound; when given (and a TPU
-    is available), the TEN per-pixel blend runs through the fused Pallas
-    allFocus kernel instead of the XLA per-level scan. `spans` is the
-    static chunk-span bound from estimate_pallas.chunk_spans; when given,
-    the exact estimate runs through the fused SWAR estimate kernel
-    (bit-identical, ~1.9x).
-
-    The per-pixel blend keeps the reference's map asymmetry
-    (src/kernels.cu:326 vs :430): STD blends with the FILTERED map, whose
-    bytes are arbitrary (a 256-byte-level select, absent bytes skipped at
-    runtime), while the tensor-path equivalent blends with the RAW estimator
-    map, whose bytes are level-quantized (at most `steps` select levels).
-    With `spread` given and a TPU available only the TEN path routes through
-    the fused Pallas allFocus kernel; STD stays on the XLA 256-byte scan
-    (measured faster on dense-byte filtered maps -- see the comment in the
-    STD branch). Without `pad`, STD uses the general gather path.
+    the pre-padded fast path of the estimator). The per-pixel blend keeps
+    the reference's map asymmetry (src/kernels.cu:326 vs :430): STD blends
+    with the FILTERED map, TEN with the RAW estimator map; both select
+    through one gather per image (faster on the GPU than scanning the
+    map's byte levels at every measured shape, see PERF.md).
 
     Returns (views [V, C, H, W] uint8, maps [2, H, W] uint8).
     """
     maps = compute_focus_maps(
         images, offsets, focus, focus_range, focus_ids,
         radius=radius, filter_radius=filter_radius, steps=steps, pad=pad,
-        exact_taps=exact_taps, spans=spans, pyramid=pyramid,
+        exact_taps=exact_taps,
     )
     views = blend_all_focus(
-        images, weights, offsets, maps, focus, focus_range,
-        method=method, steps=steps, pad=pad, spread=spread,
+        images, weights, offsets, maps, focus, focus_range, method=method,
     )
     return views, maps

@@ -1,8 +1,9 @@
-"""Pure-XLA blend paths (the "STD" method).
+"""The shift and blend stages, in plain XLA (both methods; on the GPU the
+STD blend runs in the ops/blend_triton kernel).
 
-TPU-first re-design of the reference's Standard::process kernel (reference:
-src/kernels.cu:312-342). Instead of per-thread pixel loops, the multi-view
-blend is one contraction on the MXU:
+Re-design of the reference's Standard::process and Tensors::process kernels
+(reference: src/kernels.cu:312-342, 398-461). Instead of per-thread pixel
+loops, the multi-view blend is one contraction:
 
     views[v, c, h, w] = sum_g weights[v, g] * shifted[g, c, h, w]
 
@@ -12,7 +13,7 @@ movement: an edge-replicating pad followed by a dynamic_slice, which XLA
 lowers to copies -- no gathers in the fixed-focus path. Shift amounts are
 traced values, so changing focus/trajectory does NOT trigger recompilation.
 
-Image layout is planar ``[G, C, H, W]`` uint8 (W on the TPU lane dimension).
+Image layout is planar ``[G, C, H, W]`` uint8 (W innermost).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 from jax import lax
+
+from . import blend_triton
 
 
 def to_planar(images: jnp.ndarray, channels: int = 3) -> jnp.ndarray:
@@ -175,103 +178,93 @@ def shift_stack(images: jnp.ndarray, offsets_xy: jnp.ndarray) -> jnp.ndarray:
 def blend(
     shifted: jnp.ndarray,  # [G, C, H, W] uint8
     weights: jnp.ndarray,  # [V, G] float32
+    method: str = "STD",
 ) -> jnp.ndarray:
-    """MXU contraction over the grid dimension -> [V, C, H, W] uint8.
+    """Contraction over the grid dimension -> [V, C, H, W] uint8.
 
-    float32 accumulation and round-half-to-even output conversion match the
-    reference STD kernel (src/kernels.cu:292-310).
+    STD: float32 accumulation and round-half-to-even output, matching the
+    reference STD kernel (src/kernels.cu:292-310). On the GPU it is the
+    blend_triton kernel, which sums the images in the reference's order, so
+    view batches and row blocks never change a byte; elsewhere an f32
+    contraction at HIGHEST precision (no TF32). TEN: fp16 operands with
+    float32 accumulation on the tensor cores, the reference TEN_WM's GEMM
+    (src/kernels.cu:398-461) with a wider accumulator. Both operands are
+    exact in fp16 -- pixels are integers 0..255 and the weights are
+    fp16-quantized (geometry.quantize_weights_f16) -- so TEN differs from
+    STD only by accumulation order (<= 1 LSB).
     """
     g, c, h, w = shifted.shape
-    flat = shifted.reshape(g, c * h * w).astype(jnp.float32)
-    acc = jnp.einsum(
-        "vg,gp->vp", weights, flat, precision=lax.Precision.HIGHEST
-    )
-    out = jnp.clip(jnp.round(acc), 0, 255).astype(jnp.uint8)
-    return out.reshape(weights.shape[0], c, h, w)
-
-
-def blend_fast(
-    shifted: jnp.ndarray,  # [G, C, H, W] uint8
-    weights: jnp.ndarray,  # [V, G] float32
-) -> jnp.ndarray:
-    """blend() through the 4D-tiling Pallas MXU kernel when a TPU is
-    available (3-5x faster at 1080p scale; the u8->f32 einsum materializes
-    a 4x f32 copy of the stack), falling back to the XLA einsum elsewhere.
-    Same <=1 LSB accumulation-order equivalence class as blend(), and the
-    SAME contraction as the fused kernel routes (blend_pallas.blend_tiled),
-    so XLA-path and fused-kernel renders stay bit-identical."""
-    from . import blend_pallas
-
-    if not blend_pallas.is_available():
-        return blend(shifted, weights)
-    g, c, h, w = shifted.shape
-    h_al = -(-h // 8) * 8
-    w_al = -(-w // 128) * 128
-    if (h_al, w_al) != (h, w):
-        shifted = jnp.pad(
-            shifted, ((0, 0), (0, 0), (0, h_al - h), (0, w_al - w))
+    v = weights.shape[0]
+    flat = shifted.reshape(g, c * h * w)
+    if method == "TEN":
+        acc = lax.dot_general(
+            weights.astype(jnp.float16), flat.astype(jnp.float16),
+            (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32,
         )
-    out = blend_pallas.blend_tiled(shifted, weights)
-    if (h_al, w_al) != (h, w):
-        out = out[:, :, :h, :w]
-    return out
+    elif blend_triton.available(g, v, c * h * w):
+        return blend_triton.blend(flat, weights).reshape(v, c, h, w)
+    else:
+        acc = jnp.einsum(
+            "vg,gp->vp", weights, flat.astype(jnp.float32),
+            precision=lax.Precision.HIGHEST,
+        )
+    out = jnp.clip(jnp.round(acc), 0, 255).astype(jnp.uint8)
+    return out.reshape(v, c, h, w)
 
 
 def render_fixed(
     images: jnp.ndarray,  # [G, C, H, W] uint8
     weights: jnp.ndarray,  # [V, G] float32 (pre-quantized if parity is wanted)
     focused_offsets: jnp.ndarray,  # [G, 2] int32 (dx, dy)
+    method: str = "STD",
 ) -> jnp.ndarray:
     """Fixed-focus render: shift + blend (Standard::process<false>)."""
-    return blend(shift_stack(images, focused_offsets), weights)
+    return blend(shift_stack(images, focused_offsets), weights, method)
 
 
 def no_fma(x: jnp.ndarray) -> jnp.ndarray:
     """Round an intermediate f32 product before it feeds an add.
 
-    XLA on TPU contracts `a*b + c` chains into FMAs, skipping the product's
-    IEEE rounding. Any expression that later feeds a truncation
-    (`int(coord + shift)`) must round exactly like the two-op oracle, or a
-    1-ulp difference flips the source pixel entirely (measured: border
-    pixels off by up to 27/255 at max-focus bytes before this barrier).
+    XLA fuses `a*b + c` into one loop and LLVM then contracts it into an
+    FMA, skipping the product's IEEE rounding (an optimization barrier does
+    not survive XLA's CPU and GPU pipelines). Any expression that later
+    feeds a truncation (`int(coord + shift)`) must round exactly like the
+    two-op oracle, or a 1-ulp difference flips the source pixel entirely.
+    A select on the product sits between the multiply and the add, so the
+    product is rounded on its own; it maps NaN to 0, which no caller
+    produces.
     """
-    return lax.optimization_barrier(x)
+    return jnp.where(jnp.isnan(x), jnp.zeros_like(x), x)
 
 
 def div_exact(a: jnp.ndarray, b) -> jnp.ndarray:
     """Correctly-rounded f32 division.
 
-    XLA:TPU lowers f32 `/` to reciprocal-multiply, which misrounds ~1/3 of
-    quotients by 1 ulp (measured 34% on random operands). Focus values and
-    map bytes are quotients that feed C truncation / rounding, so a 1-ulp
-    difference vs the IEEE-dividing oracle (and the reference's CUDA f32
-    divide) flips whole source pixels. Markstein correction: refine the
-    approximate quotient with an EXACT residual computed via Dekker/Veltkamp
-    two-product (mul/add are correctly rounded on TPU; barriers keep XLA
-    from re-fusing the algebra away).
+    XLA:GPU lowers f32 `/` to an approximate division that misrounds about
+    30% of quotients by an ulp. Focus values and map bytes are quotients
+    that feed C truncation / rounding, so a 1-ulp difference vs the
+    IEEE-dividing oracle (and the reference's CUDA f32 divide) flips whole
+    source pixels. Markstein correction: refine the quotient with an EXACT
+    residual computed via Dekker/Veltkamp two-product; no_fma keeps every
+    product rounded on its own, which the splitting relies on.
     """
     a = jnp.asarray(a, jnp.float32)
     b = jnp.asarray(b, jnp.float32) * jnp.ones_like(a)
-    q = lax.optimization_barrier(a / b)
+    q = a / b
     # Dekker two-product: q*b = p + e exactly.
     split = jnp.float32(4097.0)  # 2^12 + 1 splitter for f32
-    tq = lax.optimization_barrier(q * split)
-    q_hi = lax.optimization_barrier(tq - lax.optimization_barrier(tq - q))
+    tq = no_fma(q * split)
+    q_hi = tq - (tq - q)
     q_lo = q - q_hi
-    tb = lax.optimization_barrier(b * split)
-    b_hi = lax.optimization_barrier(tb - lax.optimization_barrier(tb - b))
+    tb = no_fma(b * split)
+    b_hi = tb - (tb - b)
     b_lo = b - b_hi
-    p = lax.optimization_barrier(q * b)
-    e = lax.optimization_barrier(
-        lax.optimization_barrier(
-            lax.optimization_barrier(
-                lax.optimization_barrier(q_hi * b_hi) - p
-            )
-            + lax.optimization_barrier(q_hi * b_lo)
-        )
-        + lax.optimization_barrier(q_lo * b_hi)
-    ) + lax.optimization_barrier(q_lo * b_lo)
-    r = lax.optimization_barrier(a - p) - e  # exact residual a - q*b
+    p = no_fma(q * b)
+    e = (
+        ((no_fma(q_hi * b_hi) - p) + no_fma(q_hi * b_lo))
+        + no_fma(q_lo * b_hi)
+    ) + no_fma(q_lo * b_lo)
+    r = (a - p) - e  # exact residual a - q*b
     return q + r / b  # |r/b| < 1 ulp(q): final add rounds correctly
 
 
@@ -285,287 +278,27 @@ def focus_values_from_map(
     )
 
 
-def quantized_levels(
-    focus: jnp.ndarray, focus_range: jnp.ndarray, steps: int
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """(byte values, decoded focus values) of the estimator's `steps` levels.
-
-    Bytes use the estimator's exact f32 encode expression (ops/focus.py) so
-    equality masks match the raw map bit-for-bit; the decode matches
-    loadFocusFromMap (src/kernels.cu:134-137).
-    """
-    focus = jnp.asarray(focus, jnp.float32)
-    focus_range = jnp.asarray(focus_range, jnp.float32)
-    idx = jnp.arange(steps, dtype=jnp.float32)
-    step = div_exact(focus_range, jnp.float32(steps - 1))
-    norm = div_exact((focus + no_fma(step * idx)) - focus, focus_range)
-    levels = jnp.floor(no_fma(norm * jnp.float32(255)) + 0.5).astype(jnp.uint8)
-    f_levels = focus + no_fma(
-        div_exact(levels.astype(jnp.float32), jnp.float32(255)) * focus_range
-    )
-    return levels, f_levels
-
-
-def byte_levels(
-    focus: jnp.ndarray, focus_range: jnp.ndarray
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """(all 256 byte values, their decoded focus values).
-
-    The level set for maps with ARBITRARY bytes (e.g. the box-filtered map
-    the STD method reads, src/kernels.cu:326); decode per loadFocusFromMap
-    (src/kernels.cu:134-137)."""
-    focus = jnp.asarray(focus, jnp.float32)
-    focus_range = jnp.asarray(focus_range, jnp.float32)
-    levels = jnp.arange(256, dtype=jnp.uint8)
-    f_levels = focus + no_fma(
-        div_exact(levels.astype(jnp.float32), jnp.float32(255)) * focus_range
-    )
-    return levels, f_levels
-
-
-def render_allfocus_quantized(
-    images: jnp.ndarray,  # [G, C, H, W] uint8
-    weights: jnp.ndarray,  # [V, G] float32
-    offsets: jnp.ndarray,  # [G, 2] float32 (x, y)
-    focus_map: jnp.ndarray,  # [H, W] uint8, values limited to `steps` levels
-    focus: jnp.ndarray,
-    focus_range: jnp.ndarray,
-    *,
-    steps: int,
-    pad: tuple[int, int] | None = None,  # static (px, py) >= max |shift|
-    row_start: jnp.ndarray | int = 0,
-    row_count: int | None = None,
-    all_bytes: bool = False,
-) -> jnp.ndarray:
-    """Per-pixel-focus render for maps quantized to `steps` byte levels.
-
-    With `row_start`/`row_count` (requires `pad`), renders only that block of
-    output rows; `focus_map` must then be the matching [row_count, W] block.
-
-    Our own focus estimate emits exactly round(i/(steps-1)*255) byte values
-    (ops/focus.py), so the per-pixel blend decomposes into a select over
-    `steps` constant-shift image stacks -- pure data movement + masks instead
-    of the general gather (which is ~25x slower on TPU). Pixels whose byte is
-    not one of the levels would be dropped; callers must only pass maps
-    produced by the estimator -- or set ``all_bytes=True`` to scan all 256
-    byte values (exact for ANY map, e.g. the box-filtered one the STD method
-    reads, src/kernels.cu:326; absent bytes are skipped at runtime, and
-    filtered real-scene maps cluster to a few tens of distinct bytes).
-
-    Numerics: per-level shift uses floor(f_level * offset), equal to the
-    reference's per-pixel int() truncation everywhere except pixels pushed
-    past the left/top border (see ops/focus.py docstring).
-    """
-    selected = allfocus_selected(
-        images, offsets, focus_map, focus, focus_range,
-        steps=steps, pad=pad, row_start=row_start, row_count=row_count,
-        all_bytes=all_bytes,
-    )
-    return blend_fast(selected, weights)
-
-
 def allfocus_selected(
     images: jnp.ndarray,  # [G, C, H, W] uint8
     offsets: jnp.ndarray,  # [G, 2] float32 (x, y)
-    focus_map: jnp.ndarray,  # [H, W] uint8, values limited to `steps` levels
-    focus: jnp.ndarray,
-    focus_range: jnp.ndarray,
-    *,
-    steps: int,
-    pad: tuple[int, int] | None = None,  # static (px, py) >= max |shift|
-    row_start: jnp.ndarray | int = 0,
-    row_count: int | None = None,
-    all_bytes: bool = False,
-    slab: jnp.ndarray | None = None,  # [G, C, row_count+2py, W+2px] uint8
-    coord_row0: jnp.ndarray | int = 0,
-) -> jnp.ndarray:
-    """The weight-independent SELECT stage of render_allfocus_quantized:
-    every image shifted by its pixel's focus level -> [G, C, h_out, W] uint8.
-
-    Split out so view-batched renders (api.py) select once and blend per
-    weight-row batch (the select is the expensive per-level scan; the blend
-    is one MXU contraction per batch).
-
-    `slab` replaces the full edge-padded stack with ONE row block's padded
-    window -- rows [r0, r0 + row_count + 2py) of the full pad, exactly what
-    the block's shifts read (trunc_shifted_window's dynamic-slice bound) --
-    so memory-pressured renders never materialize the full padded copy.
-    `coord_row0` = the block's global first output row r0 (row_start must
-    then be 0, the slab-local origin); `focus_map` is the block's rows.
-    Built from the raw stack by pipeline.select_allfocus_rows; bit-identical
-    to the same rows of a full-stack select."""
-    g, c, h, w = images.shape
-    # The byte levels the estimator can emit -- computed with the estimator's
-    # exact f32 expression so the equality masks match bit-for-bit
-    # (ops/focus.py byte encode), then decoded per loadFocusFromMap
-    # (src/kernels.cu:134-137).
-    focus = jnp.asarray(focus, jnp.float32)
-    focus_range = jnp.asarray(focus_range, jnp.float32)
-    if all_bytes:
-        levels, f_levels = byte_levels(focus, focus_range)
-    else:
-        levels, f_levels = quantized_levels(focus, focus_range, steps)
-    # True fractional per-level, per-image shifts (trunc applied per pixel by
-    # trunc_shifted_window, matching focusCoords exactly).
-    fxs = f_levels[:, None] * offsets[None, :, 0]  # [steps, G]
-    fys = f_levels[:, None] * offsets[None, :, 1]
-
-    if row_count is None:
-        row_count = h
-    elif pad is None:
-        raise ValueError("row blocks require the padded fast path (pass pad=)")
-    h_out = int(row_count)
-    row_start = jnp.asarray(row_start, jnp.int32)
-
-    if slab is not None:
-        if pad is None:
-            raise ValueError("slab mode requires pad=")
-        px, py = max(int(pad[0]), 1), max(int(pad[1]), 1)
-        padded = slab  # the block's window of the full pad, pre-built
-    elif pad is not None:
-        # Pre-pad once; every level's shift is then one dynamic_slice + selects
-        # (see focus.shift_pad_bound for the static bound). The per-level
-        # shifts are computed per row band below (shift_band).
-        px, py = max(int(pad[0]), 1), max(int(pad[1]), 1)
-        padded = jnp.pad(images, ((0, 0), (0, 0), (py, py), (px, px)), mode="edge")
-    else:
-
-        def shift_all(fyi, fxi):
-            def one(img, fy, fx):
-                # general path: floor-shift with clamp; the +-1 truncation
-                # correction reads come from the +-1 halo of the same window
-                sh = shift_clamped(
-                    img,
-                    jnp.clip(jnp.floor(fy), -h - 1, h).astype(jnp.int32),
-                    jnp.clip(jnp.floor(fx), -w - 1, w).astype(jnp.int32),
-                    pad_y=1, pad_x=1,
-                )  # [C, h+2, w+2]
-                qy = lax.broadcasted_iota(jnp.int32, (h, 1), 0)
-                qx = lax.broadcasted_iota(jnp.int32, (1, w), 1)
-                dyo = trunc_offsets(qy, fy)[None]
-                dxo = trunc_offsets(qx, fx)[None]
-
-                def sel(d, minus, base, plus):
-                    return jnp.where(d == 1, plus, jnp.where(d == -1, minus, base))
-
-                def rows(off):
-                    return lambda c0: sh[:, 1 + off : 1 + off + h, c0 : c0 + w]
-
-                def cols(r):
-                    return sel(dxo, r(0), r(1), r(2))
-
-                return sel(dyo, cols(rows(-1)), cols(rows(0)), cols(rows(1)))
-
-            return jax.vmap(one)(images, fyi, fxi)
-
-    # Work is restricted to where each level actually occurs, at two
-    # granularities: absent levels are skipped entirely, and present levels
-    # only touch the ROW BANDS containing their pixels (both via lax.cond,
-    # so one compiled program serves every map). A per-level pass is a
-    # read/modify/write of the full stack; real (smooth-depth) maps populate
-    # a handful of levels, each spanning a few bands -- the reference's
-    # per-pixel surface reads have no analogue of this cost, so the
-    # restriction is where the TPU path wins it back.
-    if pad is not None:
-        n_bands = max(1, min(8, h_out // 8))
-    else:
-        n_bands = 1  # the general path has no row-windowed shift
-    band_h = -(-h_out // n_bands)
-    # Uniform band height with clamped starts: the last band overlaps its
-    # neighbor, and the overlap rows are simply selected twice (idempotent).
-    starts = sorted({min(b * band_h, h_out - band_h) for b in range(n_bands)})
-    presence = jnp.stack(
-        [
-            jnp.any(
-                focus_map[None, s : s + band_h, :] == levels[:, None, None],
-                axis=(1, 2),
-            )
-            for s in starts
-        ],
-        axis=1,
-    )  # [steps, n_bands] bool
-
-    if pad is None:
-
-        def pick(carry, inputs):
-            fxi, fyi, level, pres = inputs
-
-            def do(c_):
-                shifted = shift_all(fyi, fxi)  # [G, C, h_out, W] uint8
-                mask = (focus_map == level)[None, None, :, :]
-                return jnp.where(mask, shifted, c_)
-
-            return lax.cond(pres[0], do, lambda c_: c_, carry), None
-
-    else:
-
-        def shift_rows(fyi, fxi, band_start, rows):
-            return jax.vmap(
-                lambda img, fy, fx: trunc_shifted_window(
-                    img, fy, fx, px=px, py=py, h_out=rows, w=w,
-                    row_start=row_start + band_start,
-                    coord_base=None if slab is None else coord_row0,
-                )
-            )(padded, fyi, fxi)
-
-        def pick(carry, inputs):
-            fxi, fyi, level, pres = inputs
-
-            def full(c_):
-                shifted = shift_rows(fyi, fxi, 0, h_out)
-                mask = (focus_map == level)[None, None]
-                return jnp.where(mask, shifted, c_)
-
-            def banded(c_):
-                for bi, s in enumerate(starts):
-
-                    def do(cc, s=s):
-                        shifted = shift_rows(fyi, fxi, s, band_h)
-                        mask = (focus_map[s : s + band_h] == level)[None, None]
-                        upd = jnp.where(mask, shifted, cc[:, :, s : s + band_h])
-                        return lax.dynamic_update_slice(cc, upd, (0, 0, s, 0))
-
-                    c_ = lax.cond(pres[bi], do, lambda cc: cc, c_)
-                return c_
-
-            # A level spanning most bands is cheaper as one full-frame pass
-            # (banding pays a fixed per-pass cost); sparse levels are cheaper
-            # banded. Both branches are compiled once; the map picks per level
-            # at runtime.
-            n_present = jnp.sum(pres.astype(jnp.int32))
-            use_banded = n_present <= max(1, len(starts) // 2)
-            carry = lax.cond(
-                jnp.any(pres),
-                lambda c_: lax.cond(use_banded, banded, full, c_),
-                lambda c_: c_,
-                carry,
-            )
-            return carry, None
-
-    init = jnp.zeros((g, c, h_out, w), images.dtype)
-    selected, _ = lax.scan(pick, init, (fxs, fys, levels, presence))
-    return selected
-
-
-def render_allfocus(
-    images: jnp.ndarray,  # [G, C, H, W] uint8
-    weights: jnp.ndarray,  # [V, G] float32
-    offsets: jnp.ndarray,  # [G, 2] float32 (x, y)
-    focus_map: jnp.ndarray,  # [H, W] uint8
+    focus_map: jnp.ndarray,  # [h_out, W] uint8
     focus: jnp.ndarray,
     focus_range: jnp.ndarray,
     row_start: jnp.ndarray | int = 0,
     row_count: int | None = None,
 ) -> jnp.ndarray:
-    """Per-pixel-focus render (Standard::process<true>, src/kernels.cu:312-342).
+    """Every image shifted by its pixel's focus -> [G, C, h_out, W] uint8.
 
-    Source coordinates are int(coord + focusValue*offset) with C
-    truncation-toward-zero (src/kernels.cu:78-82), clamped. This general path
-    handles arbitrary focus maps (the filtered map has arbitrary byte values)
-    and is exact; it uses one gather per image.
+    The weight-independent select of the per-pixel-focus render
+    (Standard::process<true>, src/kernels.cu:312-342): source coordinates
+    are int(coord + focusValue*offset) with C truncation toward zero
+    (src/kernels.cu:78-82), clamped, read with one gather per image -- the
+    reference's clamped surface reads. Exact for any map (the filtered map
+    the STD method reads has arbitrary bytes).
 
-    With `row_start`/`row_count`, renders only that block of output rows;
-    `focus_map` must then be the matching [row_count, W] block.
+    With `row_start`/`row_count`, selects only that block of output rows
+    (read from the full stack); `focus_map` must then be the matching
+    [row_count, W] block.
     """
     g, c, h, w = images.shape
     h_out = h if row_count is None else int(row_count)
@@ -578,15 +311,28 @@ def render_allfocus(
     def one(img, off):
         cx = jnp.clip(jnp.trunc(xx + no_fma(fv * off[0])).astype(jnp.int32), 0, w - 1)
         cy = jnp.clip(jnp.trunc(yy + no_fma(fv * off[1])).astype(jnp.int32), 0, h - 1)
-        flat_idx = (cy * w + cx).reshape(-1)  # [H*W]
-        return jnp.take(img.reshape(c, h * w), flat_idx, axis=1)  # [C, H*W]
+        flat_idx = (cy * w + cx).reshape(-1)  # [h_out*W]
+        return jnp.take(img.reshape(c, h * w), flat_idx, axis=1)  # [C, h_out*W]
 
-    shifted = jax.vmap(one)(images, offsets)  # [G, C, h_out*W]
-    acc = jnp.einsum(
-        "vg,gp->vp",
-        weights,
-        shifted.reshape(g, c * h_out * w).astype(jnp.float32),
-        precision=lax.Precision.HIGHEST,
+    return jax.vmap(one)(images, offsets).reshape(g, c, h_out, w)
+
+
+def render_allfocus(
+    images: jnp.ndarray,  # [G, C, H, W] uint8
+    weights: jnp.ndarray,  # [V, G] float32
+    offsets: jnp.ndarray,  # [G, 2] float32 (x, y)
+    focus_map: jnp.ndarray,  # [h_out, W] uint8
+    focus: jnp.ndarray,
+    focus_range: jnp.ndarray,
+    row_start: jnp.ndarray | int = 0,
+    row_count: int | None = None,
+    method: str = "STD",
+) -> jnp.ndarray:
+    """Per-pixel-focus render (Standard::process<true>): select + blend."""
+    return blend(
+        allfocus_selected(
+            images, offsets, focus_map, focus, focus_range,
+            row_start=row_start, row_count=row_count,
+        ),
+        weights, method,
     )
-    out = jnp.clip(jnp.round(acc), 0, 255).astype(jnp.uint8)
-    return out.reshape(weights.shape[0], c, h_out, w)

@@ -1,9 +1,11 @@
-"""Focus-map estimation and filtering, TPU-style.
+"""Focus-map estimation and filtering.
 
 The reference estimates a per-pixel focus (disparity) by looping 32 focus
 candidates x 32 views x 9 stencil taps per pixel (~9.2K clamped surface reads
-per output pixel, reference: src/kernels.cu:164-258). That per-pixel loop nest
-is hostile to TPUs; here it is restructured as a **focal-stack sweep**:
+per output pixel, reference: src/kernels.cu:164-258). On the GPU that
+loop nest runs blocked per output tile in a Triton kernel
+(ops/estimate_triton.py). The plain-XLA form, used off the GPU and as the
+kernel's reference, restructures it as a **focal-stack sweep**:
 
   for each candidate f (lax.scan):
     1. shift the K selected views by their per-view constant offset
@@ -35,6 +37,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from . import estimate_triton
 from .blend_xla import (
     div_exact,
     no_fma,
@@ -76,11 +79,19 @@ def shift_pad_bound(
     return rnd(px), rnd(py)
 
 
+def _encode(idx, focus, focus_range, step):
+    """Map byte of candidate index `idx` (f32): round((f_idx - focus) /
+    range * 255), with the oracle's op-by-op f32 rounding."""
+    best_focus = focus + no_fma(step * idx)
+    normalized = div_exact(best_focus - focus, focus_range)
+    return round_half_away(no_fma(normalized * jnp.float32(255))).astype(jnp.uint8)
+
+
 @partial(
     jax.jit,
     static_argnames=(
-        "radius", "steps", "pad", "row_count", "exact_taps", "tap_dtype",
-        "sel_mode", "spans", "pyramid",
+        "radius", "steps", "pad", "row_count", "exact_taps", "engine",
+        "interpret",
     ),
 )
 def estimate_focus_map(
@@ -94,24 +105,12 @@ def estimate_focus_map(
     row_start: jnp.ndarray | int = 0,
     row_count: int | None = None,
     exact_taps: bool = True,
-    tap_dtype: str = "u8",
-    sel_mode: str = "where",
-    spans: tuple[int, int] | None = None,
     slab: jnp.ndarray | None = None,  # [K, C, row_count+2py, W+2px] uint8
     coord_row0: jnp.ndarray | int = 0,
-    present: jnp.ndarray | None = None,  # [steps, row_count, W] bool
-    pyramid: tuple[int, int] | None = None,  # (scale, refine) static
+    engine: str | None = None,
+    interpret: bool = False,
 ) -> jnp.ndarray:
     """Disparity-search focus map (FocusMap::estimate, src/kernels.cu:239-258).
-
-    `tap_dtype` picks the element type the tap selects and view min/max run
-    at ("u8", "i16", "bf16", "f32") -- numerically identical for any choice
-    (taps are 0..255 integers, exactly representable in all of them); it
-    only changes which XLA:TPU vector width the reduction runs at. Measured
-    on v5e at 8x8/1080p/K=32/steps=32: u8 480 ms exact (i16/bf16 820, f32
-    1669; fast path insensitive) -- XLA:TPU legalizes u8 min/max at full
-    density (unlike Mosaic, where sub-32-bit min/max/compare all fail), so
-    the u8 default is already optimal.
 
     When `pad` is given (a static upper bound on |shift|+radius, see
     `shift_pad_bound`), the view stack is edge-padded ONCE and every
@@ -121,37 +120,31 @@ def estimate_focus_map(
 
     `exact_taps` (default, requires `pad`) evaluates every stencil tap with
     the per-pixel C truncation rule at the CENTER pixel, exactly like the
-    oracle (focusCoords is computed once per pixel, src/kernels.cu:205-210);
-    each stencil cell then does its own min/max pass over the views (~6x the
-    data movement). With exact_taps=False the min/max maps are computed once
-    per candidate and the 9 taps become slices of them -- ~6x faster, but the
-    truncation rule is evaluated at the tap position, which can flip the
-    argmin inside a radius-wide band at each view's coordinate sign change.
+    oracle (focusCoords is computed once per pixel, src/kernels.cu:205-210).
+    With exact_taps=False the min/max maps are computed once per candidate
+    and the 9 taps become slices of them, but the truncation rule is
+    evaluated at the tap position, which can flip the argmin inside a
+    radius-wide band at each view's coordinate sign change.
+
+    `engine` picks the padded path's implementation: "triton" (the
+    `estimate_triton` kernel, bit-identical to the sweep) or "xla" (the
+    focal-stack sweep below). None picks the kernel on the GPU, where it
+    was measured faster for both tap rules (PERF.md), and the sweep
+    elsewhere. `interpret=True` runs the kernel through the Pallas
+    interpreter (tests only).
 
     `row_start`/`row_count` restrict the output to a block of rows (used by
     spatially-sharded rendering; requires `pad`). `row_start` may be traced.
-
-    `spans` is the static per-candidate-chunk shift-span bound from
-    estimate_pallas.chunk_spans (host-side, from concrete offsets). When
-    given (and a TPU is available, padded path), the estimate runs through
-    the fused sublane-packed SWAR Pallas kernels -- exact taps via
-    estimate_fused (~1.9x the XLA sweep at 8x8/1080p/K=32/steps=32) and
-    the fast tap rule via estimate_fast_fused, both bit-identical to the
-    corresponding XLA path.
 
     `slab` replaces the internal full edge-pad of `selected` with ONE row
     block's padded window -- padded rows [r0, r0 + row_count + 2py), exactly
     what the block's shifts and supersets read -- so memory-pressured
     renders (api.py row-blocked plans) never materialize the full padded
     copy. `coord_row0` = the block's global first output row r0 (row_start
-    must then be 0, the slab-local origin). Composes with `spans`: the
-    fused kernels run in slab mode (estimate_pallas._run), taking either
-    the raw slab (tail-padded internally) or a pre-built window_slab with
-    the dead DMA tail already in place, so row-blocked estimates keep the
-    fused speed. Built by pipeline.estimate_focus_rows;
-    bit-identical to the same rows of the full-stack estimate. NOTE the
-    slab's pads must use this function's effective floors:
-    px,py = max(pad, radius+1).
+    must then be 0, the slab-local origin). Built by
+    pipeline.estimate_focus_rows; bit-identical to the same rows of the
+    full-stack estimate. NOTE the slab's pads must use this function's
+    effective floors: px,py = max(pad, radius+1).
 
     Returns [row_count or H, W] uint8: round((best_focus - focus)/range * 255).
     """
@@ -165,66 +158,12 @@ def estimate_focus_map(
 
     if slab is not None and pad is None:
         raise ValueError("slab mode requires the padded fast path: pass pad=")
-    # `present` ([S, rows, W] bool) restricts the argmin to per-pixel
-    # candidate subsets on the XLA sweep -- the verification oracle for the
-    # fused pyramid's presence predication (estimate_pallas); it never
-    # routes fused.
-    if spans is not None and pad is not None and present is None:
-        from . import estimate_pallas
-        from .blend_pallas import is_available
-
-        # Same pad floor as the XLA padded branch below: the kernels' clip
-        # bounds +-(py-ry-1)/+-(px-rx-1) assume pad > radius, and the XLA
-        # path this route must match bit-for-bit applies the identical max.
-        pxe, pye = max(int(pad[0]), rx + 1), max(int(pad[1]), ry + 1)
-        sup = estimate_pallas.supports if exact_taps else (
-            estimate_pallas.supports_fast
-        )
-        if is_available() and sup(
-            h_out, w, k, steps, (rx, ry), spans[0], spans[1]
-        ):
-            # `pyramid` = (scale, refine): APPROXIMATE coarse-to-fine route
-            # (full sweep at 1/scale res, presence-predicated refine at
-            # full res -- changes output, cli --focus-pyramid). Full-frame
-            # exact-taps renders only; anything else falls through to the
-            # exact fused sweep so correctness never silently degrades
-            # beyond the documented flag.
-            if (
-                pyramid is not None
-                and exact_taps
-                and slab is None
-                and h_out == h
-                and estimate_pallas.supports_pyramid(
-                    h_out, w, k, steps, (rx, ry), spans[0], spans[1],
-                    pxe, pye, scale=pyramid[0],
-                )
-            ):
-                return estimate_pallas.estimate_fused_pyramid(
-                    selected, sel_offsets, focus, focus_range,
-                    h_out=h_out, w=w, radius=(rx, ry), steps=steps,
-                    px=pxe, py=pye,
-                    span_y=int(spans[0]), span_x=int(spans[1]),
-                    scale=pyramid[0], refine=pyramid[1],
-                )[:h_out, :w]
-            fn = (
-                estimate_pallas.estimate_fused
-                if exact_taps
-                else estimate_pallas.estimate_fast_fused
-            )
-            return fn(
-                None if slab is not None else selected,
-                sel_offsets, focus, focus_range,
-                h_out=h_out, w=w, radius=(rx, ry), steps=steps,
-                px=pxe, py=pye,
-                span_y=int(spans[0]), span_x=int(spans[1]),
-                row_start=row_start, slab=slab, coord_row0=coord_row0,
-            )[:h_out, :w]
     row_start = jnp.asarray(row_start, jnp.int32)
     focus = jnp.asarray(focus, jnp.float32)
     focus_range = jnp.asarray(focus_range, jnp.float32)
     # div_exact/no_fma: candidate values must round like the oracle's
-    # op-by-op numpy expression -- TPU reciprocal-division and FMA fusion
-    # each introduce 1-ulp differences that flip truncated coordinates.
+    # op-by-op numpy expression -- a reciprocal-division or an FMA fusion
+    # would introduce 1-ulp differences that flip truncated coordinates.
     step = div_exact(focus_range, jnp.float32(steps - 1))
     candidates = focus + no_fma(
         step * jnp.arange(steps, dtype=jnp.float32)
@@ -234,8 +173,8 @@ def estimate_focus_map(
     # stencil taps evaluate the trunc rule at the tap rather than the center
     # pixel -- differing only in an rx/ry-wide band at each view's sign-change
     # column/row).
-    fxs = candidates[:, None] * sel_offsets[None, :, 0]  # [steps, K]
-    fys = candidates[:, None] * sel_offsets[None, :, 1]
+    fxs = no_fma(candidates[:, None] * sel_offsets[None, :, 0])  # [steps, K]
+    fys = no_fma(candidates[:, None] * sel_offsets[None, :, 1])
 
     stencil = [(sx, sy) for sx in (-rx, 0, rx) for sy in (-ry, 0, ry)]
 
@@ -247,6 +186,18 @@ def estimate_focus_map(
             padded = jnp.pad(
                 selected, ((0, 0), (0, 0), (py, py), (px, px)), mode="edge"
             )  # [K, C, H+2py, W+2px]
+        if engine is None:
+            engine = "triton" if estimate_triton.available(padded.size) else "xla"
+        if engine == "triton":
+            levels = _encode(
+                jnp.arange(steps, dtype=jnp.float32), focus, focus_range, step
+            )
+            return estimate_triton.estimate(
+                padded, fxs, fys, levels, row_start,
+                0 if slab is None else coord_row0,
+                h_out=h_out, w=w, px=px, py=py, rx=rx, ry=ry,
+                exact=exact_taps, interpret=interpret,
+            )
 
         def shift_views(fyi, fxi):
             return jax.vmap(
@@ -288,11 +239,6 @@ def estimate_focus_map(
                 lambda img, sy, sx: shift_clamped(img, sy, sx, pad_y=ry, pad_x=rx)
             )(selected, dyi, dxi)
 
-    tdt = {
-        "u8": jnp.uint8, "i16": jnp.int16,
-        "bf16": jnp.bfloat16, "f32": jnp.float32,
-    }[tap_dtype]
-
     def minmax_views(shifted):
         """min AND max over the view axis in ONE pass over the data (two
         separate reduces would each re-read -- or re-compute -- the shifted
@@ -306,7 +252,7 @@ def estimate_focus_map(
 
     def cost_fast(fxi, fyi):
         """Hoisted min/max: taps are slices of one per-candidate cheby map."""
-        shifted = shift_views(fyi, fxi).astype(tdt)
+        shifted = shift_views(fyi, fxi)
         mn, mx = minmax_views(shifted)
         # Costs fit i16 (<= 9 cells * 255): halves accumulator traffic.
         cheby = jnp.max(
@@ -320,7 +266,7 @@ def estimate_focus_map(
     def cost_exact(fxi, fyi):
         """Oracle-exact: per-cell min/max, truncation evaluated at the CENTER
         pixel with the oracle's own rounded-f32 expression (trunc_offsets)."""
-        sup = supersets(fyi, fxi).astype(tdt)  # [K,C,h+2ry+2,w+2rx+2], origin -1
+        sup = supersets(fyi, fxi)  # [K,C,h+2ry+2,w+2rx+2], origin -1
         qy = (
             lax.broadcasted_iota(jnp.int32, (h_out, 1), 0) + row_start
             + (0 if slab is None else jnp.asarray(coord_row0, jnp.int32))
@@ -330,19 +276,8 @@ def estimate_focus_map(
         dys = jax.vmap(lambda f: trunc_offsets(qy, f))(fyi)[:, None]
         dxs = jax.vmap(lambda f: trunc_offsets(qx, f))(fxi)[:, None]
 
-        if sel_mode == "bitwise" and tdt == jnp.uint8:
-            # 3-way select as u8 bitwise mask arithmetic: XLA:TPU runs
-            # where() at i32 vector density even for u8 operands, but pure
-            # bitwise and/or legalize at full u8 density; the masks are
-            # built once per candidate on tiny broadcastable shapes.
-            def sel(d, minus, base, plus):
-                m1 = (d == 1).astype(jnp.uint8) * jnp.uint8(255)
-                m2 = (d == -1).astype(jnp.uint8) * jnp.uint8(255)
-                m0 = (m1 | m2) ^ jnp.uint8(255)
-                return (plus & m1) | (minus & m2) | (base & m0)
-        else:
-            def sel(d, minus, base, plus):
-                return jnp.where(d == 1, plus, jnp.where(d == -1, minus, base))
+        def sel(d, minus, base, plus):
+            return jnp.where(d == 1, plus, jnp.where(d == -1, minus, base))
 
         cost = jnp.zeros((h_out, w), jnp.int16)
         for sy in (-ry, 0, ry):
@@ -375,11 +310,6 @@ def estimate_focus_map(
         fxi, fyi = inputs[0], inputs[1]  # [K], [K]
         cost = cost_fn(fxi, fyi)
         better = cost < best_cost  # strict: first minimum wins, like MinDispersion
-        if present is not None:
-            # masked scan: a non-present candidate never updates the argmin
-            # (the per-pixel oracle of estimate_pallas's presence-predicated
-            # pyramid refine pass, which skips those candidates wholesale)
-            better = better & inputs[2]
         best_cost = jnp.where(better, cost, best_cost)
         best_idx = jnp.where(better, i, best_idx)
         return (best_cost, best_idx, i + jnp.int16(1)), None
@@ -389,12 +319,8 @@ def estimate_focus_map(
         jnp.zeros((h_out, w), jnp.int16),
         jnp.int16(0),
     )
-    xs = (fxs, fys) if present is None else (fxs, fys, present)
-    (best_cost, best_idx, _), _ = lax.scan(one_candidate, init, xs)
-
-    best_focus = focus + no_fma(step * best_idx.astype(jnp.float32))
-    normalized = div_exact(best_focus - focus, focus_range)
-    return round_half_away(no_fma(normalized * jnp.float32(255))).astype(jnp.uint8)
+    (best_cost, best_idx, _), _ = lax.scan(one_candidate, init, (fxs, fys))
+    return _encode(best_idx.astype(jnp.float32), focus, focus_range, step)
 
 
 @partial(jax.jit, static_argnames=("radius",))

@@ -19,110 +19,10 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from .blend_pallas import _interpret, is_available
-
-
-def _pick_bh(th: int, tw: int, budget: int = 2 * 1024 * 1024) -> int | None:
-    """Largest 8-multiple divisor of th whose [bh, tw] u8 band fits the
-    per-block budget (double-buffered in+out stays ~4x under VMEM)."""
-    best = None
-    for bh in range(8, th + 1, 8):
-        if th % bh == 0 and bh * tw <= budget:
-            best = bh
-    return best
-
-
-def _copy_kernel(x_ref, o_ref):
-    o_ref[0, :, :] = x_ref[0, 0, :, :]
-
-
-def _assemble_pallas(tiles, cols, rows, th, tw):
-    """One auto-pipelined Pallas block copy per (tile, channel, band).
-
-    Measured in the c4 pipeline (blend output -> quilt, v5e): 6.17 ->
-    5.50 ms end-to-end vs the chained dynamic_update_slice canvas, with
-    full-tile bands (bh=1080) beating finer splits (bh=360: 5.73).
-    Curiously the ranking flips when the operand comes from a fresh
-    elementwise producer instead of the blend kernel (isolated sweep:
-    DUS 4.98 vs Pallas 5.17 best; bh=1080 pathological at 27.9) -- the
-    operand layout XLA picks decides which copy wins, so the fallback
-    stays the DUS canvas and only the render pipeline route uses this."""
-    n = cols * rows
-    c = tiles.shape[1]
-    bh = _pick_bh(th, tw)
-    return pl.pallas_call(
-        _copy_kernel,
-        grid=(rows, cols, c, th // bh),
-        in_specs=[
-            pl.BlockSpec(
-                (1, 1, bh, tw),
-                lambda r, cl, cc, b, cols=cols: (r * cols + cl, cc, b, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, bh, tw),
-            lambda r, cl, cc, b, cols=cols, nb=th // bh: (
-                cc, r * nb + b, cl,
-            ),
-            memory_space=pltpu.VMEM,
-        ),
-        out_shape=jax.ShapeDtypeStruct(
-            (c, rows * th, cols * tw), jnp.uint8
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=0,
-            bytes_accessed=2 * n * c * th * tw,
-            transcendentals=0,
-        ),
-        interpret=_interpret(),
-    )(tiles)
 
 
 def to_hwc(quilt_chw: jnp.ndarray) -> jnp.ndarray:
     return jnp.transpose(quilt_chw, (1, 2, 0))
-
-
-def supports_fused_render(
-    h: int, w: int, g: int, cols: int = 5, rows: int = 9
-) -> bool:
-    """Whether render_fixed_quilt_padded's fully-fused route handles this
-    geometry (shift kernel + direct-to-canvas blend)."""
-    from . import blend_pallas, shift_pallas
-
-    return blend_pallas.supports_quilt(h, w, g, cols, rows) and (
-        shift_pallas.supports_padded(h, w)
-    )
-
-
-@partial(jax.jit, static_argnames=("cols", "rows", "h", "w", "px", "py"))
-def render_fixed_quilt_padded(
-    padded: jnp.ndarray,  # [G, C, Hp, Wp] uint8 (from pad_images)
-    weights: jnp.ndarray,  # [V, G] float32, V >= cols*rows
-    focused_offsets: jnp.ndarray,  # [G, 2] int32
-    *,
-    cols: int = 5,
-    rows: int = 9,
-    h: int,
-    w: int,
-    px: int,
-    py: int,
-) -> jnp.ndarray:
-    """Quilt-ONLY fixed-focus render: clamp-shift + blend straight into the
-    canvas -> [C, rows*h, cols*w] uint8, never materializing the per-view
-    stack (reference flow: render views, then scripts/viewsToQuilt.sh
-    montages the PNGs -- here the montage is free and only cols*rows of
-    the 64 views are ever blended). Gate with supports_fused_render."""
-    from . import shift_pallas
-    from .blend_pallas import blend_quilt
-
-    x4 = shift_pallas.shift_padded_4d(
-        padded, focused_offsets, h=h, w=w, px=px, py=py
-    )
-    return blend_quilt(x4, weights, cols=cols, rows=rows)
 
 
 @partial(jax.jit, static_argnames=("cols", "rows", "tile_size"))
@@ -145,20 +45,11 @@ def assemble_quilt(
         )
         tiles = jnp.clip(jnp.round(tiles), 0, 255).astype(jnp.uint8)
     else:
-        # no [:n] slice: the Pallas copy's block indexing reads only the
-        # first n tiles anyway, and the slice would materialize a copy
         th, tw = h, w
         tiles = views
-    if (
-        is_available()
-        and th % 8 == 0
-        and tw % 128 == 0
-        and _pick_bh(th, tw) is not None
-    ):
-        return _assemble_pallas(tiles, cols, rows, th, tw)
-    # Unrolled per-tile copies into the canvas: plain contiguous stores,
-    # measured 1.5x faster on v5e than the transpose+reshape formulation
-    # (whose (cols, tw) minor-dim interleave lowers to a slow transpose).
+    # Unrolled per-tile copies into the canvas: plain contiguous stores
+    # (a transpose+reshape formulation interleaves the (cols, tw) minor
+    # dims, which lowers to a transpose).
     canvas = jnp.zeros((c, rows * th, cols * tw), tiles.dtype)
     for i in range(n):
         r, col = divmod(i, cols)

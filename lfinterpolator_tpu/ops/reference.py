@@ -2,7 +2,7 @@
 
 This module reproduces, in plain NumPy and with the reference's exact numeric
 semantics, the device kernels in reference: src/kernels.cu. It is the ground
-truth for the fast XLA / Pallas paths and runs on the host (use small images
+truth for the XLA paths and the GPU kernel and runs on the host (use small images
 in tests).
 
 Semantics reproduced exactly:
@@ -93,7 +93,7 @@ def blend_fixed_fp16acc(
     accumulator rounds to nearest-even fp16 once per step. Output conversion
     matches __float2int_rn.
 
-    This is NOT a path the TPU build renders with -- every production path
+    This is NOT a path this package renders with -- every production path
     accumulates in f32 (strictly more precise than the reference tensor
     kernel). It exists so users comparing against the actual CUDA binary's
     TEN_WM output can separate *expected* fp16 accumulation loss from real

@@ -3,14 +3,13 @@
 The single-process mesh in `parallel.mesh` scales across hosts unchanged once
 JAX's distributed runtime is initialized: `jax.devices()` then spans all
 hosts, `make_mesh` lays the (view x space) axes over the global device set,
-and the image-stack broadcast rides DCN while the (nonexistent) hot-loop
-communication stays on ICI (SURVEY.md section 5: DCN only for multi-host
-input broadcast).
+and only the image-stack broadcast crosses hosts (the hot loop has no
+communication; SURVEY.md section 5).
 
-Typical launch (one process per host):
+Typical launch (one process per host; JAX needs the coordinator given):
 
     from lfinterpolator_tpu.parallel import distributed, mesh
-    distributed.initialize()            # env-driven on Cloud TPU
+    distributed.initialize("host0:1234", num_processes=2, process_id=rank)
     m = mesh.make_mesh()                # global mesh over all hosts
     interp = Interpolator(path, mesh=m)
 
@@ -31,8 +30,8 @@ def initialize(
 ) -> None:
     """Initialize jax.distributed (no-op if already initialized).
 
-    With no arguments, relies on the environment (Cloud TPU pods set
-    everything automatically).
+    With no arguments, relies on what the cluster environment provides;
+    elsewhere pass the coordinator address, process count and id.
     """
     try:
         jax.distributed.initialize(

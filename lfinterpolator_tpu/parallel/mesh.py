@@ -1,7 +1,7 @@
-"""Multi-chip rendering: shard_map over a (view, space) device mesh.
+"""Multi-device rendering: shard_map over a (view, space) device mesh.
 
-The reference is strictly single-GPU (SURVEY.md section 2.5); multi-chip
-scaling is new capability, designed TPU-first rather than ported:
+The reference is strictly single-GPU (SURVEY.md section 2.5); multi-device
+scaling is new capability:
 
   * the problem is pixel- and view-parallel, so the natural mesh is 2-D:
     - "view"  axis: the [V, G] weight matrix (and the output view dim) is
@@ -9,12 +9,12 @@ scaling is new capability, designed TPU-first rather than ported:
     - "space" axis: output rows are sharded; each shard renders only its row
       block by folding the block offset into the clamped-shift dynamic_slice
       (no halo exchange -- the image stack is replicated, so the hot loop has
-      ZERO inter-chip communication; ICI is used only for the initial
-      broadcast of inputs).
+      ZERO inter-device communication; the interconnect carries only the
+      initial broadcast of inputs).
   * outputs stay sharded; gather them only at the host boundary.
 
-Throughput therefore scales linearly in chips for the blend (each chip does
-V/nv x H/ns of the work).
+Throughput therefore scales linearly in devices for the blend (each device
+does V/nv x H/ns of the work).
 """
 
 from __future__ import annotations
@@ -67,12 +67,13 @@ def shard_inputs(
     return replicate(mesh, images), shard_weights(mesh, weights)
 
 
-@partial(jax.jit, static_argnames=("mesh",))
+@partial(jax.jit, static_argnames=("mesh", "method"))
 def render_fixed_sharded(
     mesh: Mesh,
     images: jnp.ndarray,  # [G, C, H, W] uint8, replicated
     weights: jnp.ndarray,  # [V, G] float32, sharded over "view"
     focused_offsets: jnp.ndarray,  # [G, 2] int32, replicated
+    method: str = "STD",
 ) -> jnp.ndarray:
     """Fixed-focus render sharded over (views x rows) -> [V, C, H, W] uint8,
     output sharded P('view', None, 'space', None)."""
@@ -92,61 +93,15 @@ def render_fixed_sharded(
             return blend_xla.shift_axis_clamped(out, o[0], axis=2)
 
         shifted = jax.vmap(shift_one)(images_l, offs_l)  # [G, C, h_local, W]
-        return blend_xla.blend(shifted, weights_l)
+        return blend_xla.blend(shifted, weights_l, method)
 
     return shard_map(
         local_render,
         mesh=mesh,
         in_specs=(P(), P("view", None), P()),
         out_specs=P("view", None, "space", None),
+        check_vma=False,  # the STD blend's pallas_call (GPU) carries no vma
     )(images, weights, focused_offsets)
-
-
-@partial(
-    jax.jit,
-    static_argnames=("mesh", "h", "w", "px", "py"),
-)
-def render_fixed_sharded_pallas(
-    mesh: Mesh,
-    padded: jnp.ndarray,  # [G, C, Hp, Wp] uint8 (blend_pallas.pad_images), replicated
-    weights: jnp.ndarray,  # [V, G] float32, sharded over "view"
-    focused_offsets: jnp.ndarray,  # [G, 2] int32, replicated
-    *,
-    h: int,
-    w: int,
-    px: int,
-    py: int,
-) -> jnp.ndarray:
-    """Fixed-focus render with the fused Pallas MXU kernel on every shard.
-
-    Each shard runs the single-chip kernel on its own row block (row_start
-    folded into the clamp-shift slice starts) with its view-shard of the
-    weights -- same zero-communication layout as render_fixed_sharded, but
-    at the fused kernel's throughput. Requires H divisible by the space
-    axis; TPU (or interpret-mode) only.
-    """
-    from ..ops import blend_pallas
-
-    n_space = mesh.shape["space"]
-    if h % n_space != 0:
-        raise ValueError(f"H={h} must divide by the space axis ({n_space})")
-    h_local = h // n_space
-
-    def local_render(padded_l, weights_l, offs_l):
-        row0 = jax.lax.axis_index("space") * h_local
-        return blend_pallas.render_fixed_padded(
-            padded_l, weights_l, offs_l,
-            h=h, w=w, px=px, py=py,
-            row_start=row0, row_count=h_local,
-        )
-
-    return shard_map(
-        local_render,
-        mesh=mesh,
-        in_specs=(P(), P("view", None), P()),
-        out_specs=P("view", None, "space", None),
-        check_vma=False,
-    )(padded, weights, focused_offsets)
 
 
 def _shard_slab(
@@ -156,22 +111,17 @@ def _shard_slab(
     px: int,
     py: int,
     rows: int,
-    wp: int,
     ids: jnp.ndarray | None = None,
 ) -> jnp.ndarray:
-    """Rows [r0-py, r0-py+rows) x cols [-px, wp-px) of the VIRTUAL full
-    edge-pad of `stack`, built per shard -> [N|K, C, rows, wp] uint8.
+    """Rows [r0-py, r0-py+rows) x cols [-px, w+px) of the VIRTUAL full
+    edge-pad of `stack`, built per shard -> [N|K, C, rows, w+2px] uint8.
 
     shard_map runs ONE program on every shard, so the static top/bot
-    edge-clip counts of pipeline._row_slab / estimate_pallas.window_slab
-    (which differ between the first, interior, and last shards) cannot be
-    used here. Instead the row window is built with a CLIPPED row gather:
-    slab row i holds raw row clip(r0 - py + i, 0, H-1), which is exactly
-    what slice + edge-pad produces at every shard position. Rows past
-    rc + 2py (the fused kernels' dead DMA tail) get subsequent clamped raw
-    rows rather than a replicated edge row -- those bytes are fetched by
-    overshooting windows but never selected (estimate_pallas._edge_pad
-    invariant), so the difference cannot reach any output.
+    edge-clip counts of pipeline._row_slab (which differ between the first,
+    interior, and last shards) cannot be used here. Instead the row window
+    is built with a CLIPPED row gather: slab row i holds raw row
+    clip(r0 - py + i, 0, H-1), which is exactly what slice + edge-pad
+    produces at every shard position.
 
     `ids` additionally gathers a view subset (the focus views); the gather
     order (views-first vs rows-first) is chosen by whichever materializes
@@ -188,60 +138,21 @@ def _shard_slab(
             blk = blk[ids]
             n = ids.shape[0]
     left = jnp.broadcast_to(blk[:, :, :, :1], (n, c, rows, px))
-    right = jnp.broadcast_to(blk[:, :, :, w - 1 :], (n, c, rows, wp - w - px))
+    right = jnp.broadcast_to(blk[:, :, :, w - 1 :], (n, c, rows, px))
     return jnp.concatenate([left, blk, right], axis=3)
-
-
-def _est_slab_dims(
-    h_local: int, w: int, k: int, *,
-    radius: tuple[int, int],
-    steps: int,
-    pad: tuple[int, int],
-    spans: tuple[int, int] | None,
-    exact_taps: bool,
-) -> tuple[int, int]:
-    """(rows, wp) of the per-shard estimate slab: the fused kernels' padded
-    operand dims when the fused gate passes (mirrors estimate_focus_map's
-    dispatch -- slab_dims/_run share _cfg_for, so planner and engine agree),
-    else the XLA sweep's [h_local+2py, w+2px]. A fused-shaped slab is a
-    SUPERSET of the XLA one with the same origin, so a gate mismatch can
-    only waste bytes, never flip results."""
-    rx, ry = int(radius[0]), int(radius[1])
-    pxe, pye = max(int(pad[0]), rx + 1), max(int(pad[1]), ry + 1)
-    if spans is not None:
-        from ..ops import blend_pallas, estimate_pallas
-
-        sup = (
-            estimate_pallas.supports if exact_taps
-            else estimate_pallas.supports_fast
-        )
-        if blend_pallas.is_available() and sup(
-            h_local, w, k, steps, (rx, ry), int(spans[0]), int(spans[1])
-        ):
-            return estimate_pallas.slab_dims(
-                h_local, w, k, steps, (rx, ry),
-                int(spans[0]), int(spans[1]), pad[0], pad[1],
-                exact_taps=exact_taps,
-            )
-    return h_local + 2 * pye, w + 2 * pxe
 
 
 def allfocus_shard_bytes(
     n_view: int, n_space: int,
     g: int, k: int, c: int, h: int, w: int, v: int, *,
     radius: tuple[int, int],
-    steps: int,
     pad: tuple[int, int],
-    spans: tuple[int, int] | None,
-    spread: int | None,
-    method: str,
-    exact_taps: bool,
 ) -> dict[str, int]:
-    """PER-CHIP byte arithmetic of render_all_focus_sharded's slab route
-    (host-side; same statics as the render, so the plan sizes the engines
-    that actually run). Keys: 'stack' (the replicated resident), 'estimate'
-    and 'select_blend' (phase peaks incl. the stack), 'peak' (their max).
-    Feed 'peak' to capacity.check_capacity before building the mesh render.
+    """PER-DEVICE byte arithmetic of render_all_focus_sharded (host-side;
+    same statics as the render). Keys: 'stack' (the replicated resident),
+    'estimate' and 'select_blend' (phase peaks incl. the stack), 'peak'
+    (their max). Feed 'peak' to capacity.check_capacity before building the
+    mesh render.
     """
     if h % n_space != 0 or v % n_view != 0:
         raise ValueError(
@@ -249,48 +160,22 @@ def allfocus_shard_bytes(
         )
     h_local = h // n_space
     v_local = v // n_view
-    align = lambda x, m: -(-x // m) * m
     rx, ry = int(radius[0]), int(radius[1])
     pxe, pye = max(int(pad[0]), rx + 1), max(int(pad[1]), ry + 1)
     in_b = g * c * h * w
     maps_b = 3 * h * w  # shard map blocks + the all_gathered full map0
 
-    est_rows, est_wp = _est_slab_dims(
-        h_local, w, k, radius=radius, steps=steps, pad=pad, spans=spans,
-        exact_taps=exact_taps,
-    )
-    slab_b = k * c * est_rows * est_wp
+    est_rows = h_local + 2 * pye
+    slab_b = k * c * est_rows * (w + 2 * pxe)
     build_b = min(k * h, g * est_rows) * c * w  # _shard_slab's gather order
-    fused_est = est_rows != h_local + 2 * pye
-    # XLA sweep temporaries (supersets + tap selects); the fused kernels
-    # accumulate in VMEM
-    sweep_b = 0 if fused_est else 2 * k * c * h_local * w
+    sweep_b = 2 * k * c * h_local * w  # the XLA sweep's temporaries
     estimate_b = in_b + build_b + slab_b + sweep_b + maps_b
 
-    h8, w128 = align(h, 8), align(w, 128)
-    hl8 = align(h_local, 8)
-    out_b = v_local * (
-        c * hl8 * w128 + (c * h_local * w if (hl8, w128) != (h_local, w) else 0)
-    )
-    use_fused_blend = False
-    if spread is not None:
-        from ..ops import allfocus_pallas, blend_pallas
-
-        use_fused_blend = blend_pallas.is_available() and (
-            allfocus_pallas.supports(h, w, spread, row_count=h_local)
-        )
-    if use_fused_blend:
-        tiled_b = g * c * h8 * w128  # per-shard pad_to_tiles copy (FULL h)
-        x4_b = g * c * hl8 * w128
-        select_b = in_b + maps_b + max(tiled_b + x4_b, x4_b + out_b)
-    else:
-        px1, py1 = max(int(pad[0]), 1), max(int(pad[1]), 1)
-        slab_g = g * c * (h_local + 2 * py1) * (w + 2 * px1)
-        sel_b = g * c * h_local * w
-        align_b = g * c * hl8 * w128 if (hl8, w128) != (h_local, w) else 0
-        select_b = in_b + maps_b + max(
-            slab_g + sel_b, sel_b + align_b + out_b
-        )
+    # gathered rows + int32 indices, then the blend's 4-byte operand and
+    # per view the output with its float32 accumulator
+    got = g * c * h_local * w
+    out_b = v_local * 5 * c * h_local * w
+    select_b = in_b + maps_b + got + max(4 * g * h_local * w, 4 * got + out_b)
     return {
         "stack": in_b,
         "estimate": estimate_b,
@@ -301,31 +186,20 @@ def allfocus_shard_bytes(
 
 def fixed_shard_bytes(
     n_view: int, n_space: int,
-    g: int, c: int, h: int, w: int, v: int, *,
-    px: int, py: int, use_pallas: bool,
+    g: int, c: int, h: int, w: int, v: int,
 ) -> int:
-    """PER-CHIP byte arithmetic of the sharded fixed-focus render.
-
-    Pallas route: replicated raw + padded stacks (both resident -- api.py
-    keeps the raw stack for later renders) + the shard's shift intermediate
-    and output. XLA route: replicated raw stack + the shard's shifted rows,
-    the u8->f32 einsum copy of them, and the output with its f32
-    accumulator (plan_fixed_render's engine model, restricted to shard
-    rows). Feed to capacity.check_capacity with capacity.MESH_HINT."""
+    """PER-DEVICE byte arithmetic of the sharded fixed-focus render:
+    replicated raw stack + the shard's shifted rows, the blend's 4-byte
+    operand copy of them, and the output with its float32 accumulator
+    (plan_fixed_render's model, restricted to shard rows). Feed to
+    capacity.check_capacity with capacity.MESH_HINT."""
     if h % n_space != 0 or v % n_view != 0:
         raise ValueError(
             f"H={h} / V={v} must divide by the mesh axes ({n_space}, {n_view})"
         )
     h_local = h // n_space
     v_local = v // n_view
-    align = lambda x, m: -(-x // m) * m
-    hl8, w128 = align(h_local, 8), align(w, 128)
     in_b = g * c * h * w
-    if use_pallas:
-        padded_b = g * c * (h + 2 * py + 48) * (w + 2 * px + 256)
-        shift_b = g * c * hl8 * w128
-        out_b = v_local * c * hl8 * w128
-        return in_b + padded_b + shift_b + out_b
     shift_b = g * c * h_local * w
     out_b = v_local * (c * h_local * w + 4 * c * h_local * w)
     return in_b + shift_b + 4 * shift_b + out_b
@@ -335,7 +209,7 @@ def fixed_shard_bytes(
     jax.jit,
     static_argnames=(
         "mesh", "method", "radius", "filter_radius", "steps", "pad",
-        "exact_taps", "spread", "spans",
+        "exact_taps",
     ),
 )
 def render_all_focus_sharded(
@@ -353,28 +227,21 @@ def render_all_focus_sharded(
     steps: int = 32,
     pad: tuple[int, int] = (64, 64),
     exact_taps: bool = True,
-    spread: int | None = None,
-    spans: tuple[int, int] | None = None,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Full all-in-focus pipeline over the (view x space) mesh.
 
     Per shard: estimate its own row block of the focus map (inputs are
     replicated, so the disparity search needs no halo exchange), all_gather
     the tiny [H, W] map over the space axis (the box filter's halo is the
-    only cross-shard dependency in the whole pipeline), filter + blend its
-    row block with its view-shard of the weight matrix.
+    only cross-shard dependency in the whole pipeline), filter, select and
+    blend its row block with its view-shard of the weight matrix.
 
-    Memory (round 5): every shard-local stage runs in SLAB mode -- the
-    estimate reads a [K, C, h_local+2py(+tail), W+2px(+tail)] window built
-    by _shard_slab (never the full-height focus-view gather or the
-    full-frame padded copy the pre-slab formulation materialized: 2.97 +
-    ~4 GiB per chip at 8K), and the XLA select rebuilds its block's pad
-    window the same way (select_allfocus_rows semantics, uniform-program
-    variant). The fused TEN select kernel already reads row windows
-    straight from the (full-height) tiled stack. Per-chip feasibility is
-    `allfocus_shard_bytes` -- api.py checks it host-side before building
-    the render, replacing the reference's abort-on-OOM
-    (src/interpolator.cu:95-137).
+    The estimate reads a [K, C, h_local+2py, W+2px] window built by
+    _shard_slab (never the full-height focus-view gather or the full-frame
+    padded copy), and the select gathers its rows straight from the
+    replicated stack. Per-device feasibility is `allfocus_shard_bytes` --
+    api.py checks it host-side before building the render, replacing the
+    reference's abort-on-OOM (src/interpolator.cu:95-137).
 
     Returns (views sharded P('view', None, 'space', None),
              maps [2, H, W] sharded P(None, 'space', None)).
@@ -386,26 +253,13 @@ def render_all_focus_sharded(
     if h % n_space != 0:
         raise ValueError(f"H={h} must divide by the space axis ({n_space})")
     h_local = h // n_space
-    k = focus_ids.shape[0]
     rx, ry = int(radius[0]), int(radius[1])
     pxe, pye = max(int(pad[0]), rx + 1), max(int(pad[1]), ry + 1)
-    est_rows, est_wp = _est_slab_dims(
-        h_local, w, k, radius=radius, steps=steps, pad=pad, spans=spans,
-        exact_taps=exact_taps,
-    )
-    px1, py1 = max(int(pad[0]), 1), max(int(pad[1]), 1)
-    use_fused_blend = False
-    if spread is not None:
-        from ..ops import allfocus_pallas, blend_pallas
-
-        use_fused_blend = blend_pallas.is_available() and (
-            allfocus_pallas.supports(h, w, spread, row_count=h_local)
-        )
 
     def local_fn(images_l, weights_l, offsets_l, ids_l, focus, focus_range):
         row0 = jax.lax.axis_index("space") * h_local
         sel_slab = _shard_slab(
-            images_l, row0, px=pxe, py=pye, rows=est_rows, wp=est_wp,
+            images_l, row0, px=pxe, py=pye, rows=h_local + 2 * pye,
             ids=ids_l,
         )
         map0_l = focus_ops.estimate_focus_map(
@@ -414,44 +268,18 @@ def render_all_focus_sharded(
             images_l[ids_l],
             offsets_l[ids_l], focus, focus_range, radius,
             steps=steps, pad=pad, row_count=h_local,
-            exact_taps=exact_taps, spans=spans,
-            slab=sel_slab, coord_row0=row0,
+            exact_taps=exact_taps, slab=sel_slab, coord_row0=row0,
         )
         # Only cross-shard dependency: the filter halo. The map is tiny.
         map0_full = jax.lax.all_gather(map0_l, "space", tiled=True)
         map1_l = focus_ops.filter_focus_map_block(
             map0_full, filter_radius, row0, h_local
         )
-        if use_fused_blend:
-            from ..ops import allfocus_pallas
-
-            # fused allFocus kernel per shard: the select kernel DMAs row
-            # windows straight from the (full-height) tiled stack and
-            # emits only this shard's rows. Map/level set follow the
-            # reference's method asymmetry (STD: filtered map, 256 byte
-            # levels; TEN: raw map, `steps` levels).
-            views_l = allfocus_pallas.render_allfocus_quantized_fused(
-                images_l, weights_l, offsets_l,
-                map1_l if method == "STD" else map0_l, focus,
-                focus_range, steps=steps, spread=spread, px=pad[0],
-                row_start=row0, row_count=h_local,
-                all_bytes=(method == "STD"),
-            )
-        else:
-            # XLA select in slab mode + the shared MXU contraction --
-            # the same select/blend seam as pipeline.select_allfocus_rows
-            # + blend_selected (byte-exact split, chip-validated)
-            fmap = map1_l if method == "STD" else map0_l
-            slab_g = _shard_slab(
-                images_l, row0, px=px1, py=py1,
-                rows=h_local + 2 * py1, wp=w + 2 * px1,
-            )
-            sel = blend_xla.allfocus_selected(
-                images_l, offsets_l, fmap, focus, focus_range,
-                steps=steps, pad=pad, row_count=h_local,
-                all_bytes=(method == "STD"), slab=slab_g, coord_row0=row0,
-            )
-            views_l = blend_xla.blend_fast(sel, weights_l)
+        views_l = blend_xla.render_allfocus(
+            images_l, weights_l, offsets_l,
+            map1_l if method == "STD" else map0_l, focus, focus_range,
+            row_start=row0, row_count=h_local, method=method,
+        )
         return views_l, jnp.stack([map0_l, map1_l])
 
     return shard_map(

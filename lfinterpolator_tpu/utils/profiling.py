@@ -1,6 +1,6 @@
 """Benchmark & profiling harness.
 
-TPU-native replacement for the reference's CUDA-event Timer + 100-run loop
+Replacement for the reference's CUDA-event Timer + 100-run loop
 (reference: src/interpolator.cu:13-34, 271-295): warmup-excluded wall timing
 around block_until_ready, optional jax.profiler traces, and throughput
 reporting in output megapixels/gigapixels per second.
@@ -44,9 +44,8 @@ class BenchResult:
 def benchmark(step, out_pixels: int, *, runs: int = 100, warmup: int = 3) -> BenchResult:
     """Time `step(i)` `runs` times (after `warmup` untimed calls).
 
-    `step` must accept a run index and return device arrays; pass a step whose
-    inputs vary with the index -- some execution environments memoize
-    identical (executable, inputs) pairs, which fakes the timing.
+    `step` accepts a run index and returns device arrays; each call is
+    timed to block_until_ready.
     """
     for i in range(warmup):
         jax.block_until_ready(step(i))

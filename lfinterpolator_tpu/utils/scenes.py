@@ -5,16 +5,15 @@ The reference's regression harness runs on five real captured scenes
 not available here. The bench/gate scenes were plain multi-plane depth BANDS
 (bench.py `_structured_scene`, scripts/bench_8k.build_scene) -- real signal
 for the disparity sweep, but no occlusion: every pixel is visible at its own
-depth in every camera. Real light fields are not like that, and the round-4
-pyramid post-mortem proved the map-dependent stages are content-sensitive
-(presence density, STD's byte-diversity scan).
+depth in every camera. Real light fields are not like that, and the
+map-dependent stages are content-sensitive.
 
 `make_occlusion_scene` builds the missing case: foreground occluders at
 distinct disparities composited over a background plane, back to front, each
 layer (texture AND its occluder mask) shifting per camera with its own
 disparity. Pixels near occluder borders are therefore seen by some cameras
 and hidden in others -- true parallax occlusion, the content the dispersion
-cost and the presence-driven blend stages face on captured data. In occluded
+cost and the per-pixel-focus blend face on captured data. In occluded
 bands the disparity sweep has NO candidate that aligns all views, so the
 estimate there is decided by the cost tie-breaking -- exactly the regime the
 synthetic band scenes never exercised.

@@ -42,6 +42,9 @@ def main() -> int:
     args = p.parse_args()
 
     from lfinterpolator_tpu.api import interpolate
+    from lfinterpolator_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     view = args.view
     if not 0 <= view < len(POSITIONS):

@@ -13,7 +13,7 @@ Refresh frames (t % N == 0) are bit-identical by construction and excluded
 from the min/mean.
 
 Prints one JSON line: per-N mean/min dB plus the per-frame-estimate
-amortization context. Runs on CPU (LFI_PALLAS_INTERPRET=1) or a real TPU.
+amortization context. Runs on whatever backend JAX selects (CPU or GPU).
 
 Usage: map_refresh_quality.py [--size HxW] [--grid CxR] [--frames F]
                               [--speed PX] [--refresh N,N,...]
@@ -48,12 +48,12 @@ def main() -> int:
     from lfinterpolator_tpu.core import geometry
     from lfinterpolator_tpu.models import pipeline
     from lfinterpolator_tpu.ops import blend_xla, focus as focus_ops
-    from lfinterpolator_tpu.ops import allfocus_pallas, estimate_pallas
-    from lfinterpolator_tpu.utils import metrics
+    from lfinterpolator_tpu.utils import compile_cache, metrics
     from lfinterpolator_tpu.utils.scenes import (
         make_occlusion_scene, occlusion_foci,
     )
 
+    compile_cache.enable()
     focus, frange = 0.1, 0.3
     se = np.array([0.0, 0.0, cols - 1.0, rows - 1.0], np.float32)
     wm = geometry.quantize_weights_f16(
@@ -68,8 +68,6 @@ def main() -> int:
         se, cols, rows, min(32, cols * rows)
     )
     pad = focus_ops.shift_pad_bound(offsets, focus, frange, radius, h, w)
-    spread = allfocus_pallas.spread_bound(offsets, focus, frange)
-    spans = estimate_pallas.chunk_spans(offsets, focus, frange, args.steps, 4)
     weights = jnp.asarray(wm)
     offj = jnp.asarray(offsets)
     idsj = jnp.asarray(ids)
@@ -87,14 +85,12 @@ def main() -> int:
         maps_exact.append(pipeline.compute_focus_maps(
             planar, offj, jnp.float32(focus), jnp.float32(frange), idsj,
             radius=radius, filter_radius=frad, steps=args.steps, pad=pad,
-            spans=spans,
         ))
 
     def blend(planar, maps):
         return np.asarray(blend_xla.from_planar(pipeline.blend_all_focus(
             planar, weights, offj, maps, jnp.float32(focus),
-            jnp.float32(frange), method="TEN", steps=args.steps, pad=pad,
-            spread=spread,
+            jnp.float32(frange), method="TEN",
         )))
 
     exact_views = [blend(frames[t], maps_exact[t]) for t in range(args.frames)]

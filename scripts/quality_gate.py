@@ -2,11 +2,11 @@
 """Quality gate: PSNR/SSIM of every render path against the NumPy oracle.
 
 BASELINE.md target: >= 45 dB PSNR vs the bit-faithful oracle. Renders a
-synthetic structured scene through the library paths (STD/XLA, TEN/Pallas,
+synthetic structured scene through the library paths (STD and TEN,
 fixed-focus and all-in-focus) and prints one JSON line per path plus PASS/FAIL.
 
-Runs on whatever backend JAX selects (CPU with LFI_PALLAS_INTERPRET=1, or a
-real TPU). Sizes are kept modest so device->host fetches stay cheap.
+Runs on whatever backend JAX selects (CPU, or the GPU with the compiled
+estimate kernel). Sizes are kept modest so device->host fetches stay cheap.
 
 Usage: quality_gate.py [--size HxW] [--grid CxR]
 """
@@ -57,8 +57,9 @@ def main() -> int:
     from lfinterpolator_tpu.models import pipeline
     from lfinterpolator_tpu.ops import blend_xla, focus as focus_ops
     from lfinterpolator_tpu.ops import reference as oracle
-    from lfinterpolator_tpu.utils import metrics
+    from lfinterpolator_tpu.utils import compile_cache, metrics
 
+    compile_cache.enable()
     rng = np.random.default_rng(99)
     if args.scene == "occlusion":
         from lfinterpolator_tpu.utils.scenes import (
@@ -85,13 +86,6 @@ def main() -> int:
     frad = (radius[0] // 10, radius[1] // 10)
     ids = geometry.select_focus_views(se, cols, rows, min(32, cols * rows))
     pad = focus_ops.shift_pad_bound(offsets, focus, frange, radius, h, w)
-    from lfinterpolator_tpu.ops import allfocus_pallas, estimate_pallas
-
-    # routes the TEN per-pixel blend through the fused allFocus kernel and
-    # the exact estimate through the fused SWAR kernel on TPU/interpret
-    # (the XLA fallbacks are gated by the same calls without them)
-    spread = allfocus_pallas.spread_bound(offsets, focus, frange)
-    spans = estimate_pallas.chunk_spans(offsets, focus, frange, 32, 4)
 
     planar = blend_xla.to_planar(jnp.asarray(images))
     weights = jnp.asarray(wm.astype(np.float32))
@@ -124,7 +118,6 @@ def main() -> int:
             planar, weights, offj,
             jnp.float32(focus), jnp.float32(frange), jnp.asarray(ids),
             method=method, radius=radius, filter_radius=frad, steps=32, pad=pad,
-            spread=spread, spans=spans,
         )
         got = np.asarray(blend_xla.from_planar(views))
         results[f"allfocus/{method}"] = metrics.psnr(got, want)
@@ -138,7 +131,6 @@ def main() -> int:
             jnp.float32(focus), jnp.float32(frange), jnp.asarray(ids),
             method=method, radius=radius, filter_radius=frad, steps=32,
             pad=pad, exact_taps=False,
-            spread=spread, spans=spans,
         )
         got = np.asarray(blend_xla.from_planar(views))
         results[f"allfocus-fast/{method}"] = metrics.psnr(got, want)

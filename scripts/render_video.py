@@ -38,8 +38,7 @@ def main() -> int:
     p.add_argument(
         "--map-refresh", type=int, default=1, metavar="N",
         help="re-estimate the focus maps every N frames and reuse them in "
-             "between (the estimate is 82-84%% of an all-focus frame and "
-             "video depth changes slowly; N>1 is approximate)",
+             "between (video depth changes slowly; N>1 is approximate)",
     )
     p.add_argument("--resume", action="store_true")
     p.add_argument("--limit", type=int, default=0)
@@ -48,6 +47,9 @@ def main() -> int:
     from lfinterpolator_tpu.core.config import RenderConfig
     from lfinterpolator_tpu.io import loader
     from lfinterpolator_tpu.streaming import StreamingRenderer
+    from lfinterpolator_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     frame_dirs = sorted(
         os.path.join(args.input, d)

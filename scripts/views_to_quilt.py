@@ -26,6 +26,9 @@ def main() -> int:
     import jax.numpy as jnp
     from lfinterpolator_tpu.io import codec, writer
     from lfinterpolator_tpu.ops import quilt
+    from lfinterpolator_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     names = sorted(
         n for n in os.listdir(args.view_dir)

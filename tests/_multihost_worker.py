@@ -4,7 +4,7 @@ Each process owns 4 virtual CPU devices; together they form the 8-device
 (view x space) mesh the single-process tests use. Exercises the real
 multi-process code paths that in-process tests cannot: distributed.initialize,
 a sharded render spanning processes, and the process_allgather branches of
-api._fetch / api._tiny_sync.
+api._fetch.
 
 Usage: _multihost_worker.py PORT RANK NPROCS
 """
@@ -70,7 +70,7 @@ def main() -> int:
     weights_d = pmesh.shard_weights(mesh, jnp.asarray(wm))
     views = pmesh.render_fixed_sharded(mesh, imgs_d, weights_d, jnp.asarray(fo))
 
-    api._tiny_sync(views)  # process_allgather corner-fetch branch
+    jax.block_until_ready(views)
     got = api._fetch(blend_xla.from_planar(views))  # full allgather branch
     want = oracle.blend_fixed(images[..., :3], wm, fo)
     np.testing.assert_array_equal(got, want)

@@ -213,7 +213,6 @@ def test_interpolate_batch_allfocus_matches_individual(scene_dir, monkeypatch):
     """All-focus batch: same-center trajectories share one estimate + one
     per-pixel-focus select; every entry must equal its solo run byte for
     byte (incl. the shared maps), for both methods."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
     d, _, _ = scene_dir
     trajs = ["0.0,0.0,1.0,1.0", "0.2,0.2,0.8,0.8", "0.5,0.5,0.5,0.5"]
     for m in ("STD", "TEN"):
@@ -249,7 +248,6 @@ def test_interpolate_batch_mixed_centers_matches_individual(scene_dir):
 def test_interpolate_batch_allfocus_mixed_centers(scene_dir, monkeypatch):
     """All-focus batch across TWO center groups: each group gets its own
     estimate/maps; every entry (views AND maps) equals its solo run."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
     d, _, _ = scene_dir
     interp = Interpolator(
         d, config=RenderConfig(view_count=4, focus_map_views=8),
@@ -273,7 +271,6 @@ def test_interpolate_batch_center_tolerance(scene_dir, monkeypatch):
     """center_tolerance merges near-equal centers into ONE group (shared
     maps, first member's center); tolerance 0 keeps exact per-center
     grouping. The far trajectory stays its own group either way."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
     d, _, _ = scene_dir
     interp = Interpolator(
         d, config=RenderConfig(view_count=4, focus_map_views=8),
@@ -303,25 +300,6 @@ def test_interpolate_batch_center_tolerance(scene_dir, monkeypatch):
         progress=False,
     )
     assert len({r.maps.tobytes() for r in one}) == 1
-
-
-def test_focus_pyramid_flag_renders(scene_dir, monkeypatch):
-    """focus_pyramid=True renders end-to-end; on geometries below the fused
-    kernel's minima it falls back to the exact sweep (identical output)."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
-    d, _, _ = scene_dir
-    cfg = RenderConfig(view_count=4, focus_map_views=8, focus_pyramid=True)
-    out = Interpolator(d, config=cfg, progress=False).interpolate(
-        "0,0,1,1", focus=0.1, focus_range=0.2, progress=False
-    )
-    ref = Interpolator(
-        d, config=RenderConfig(view_count=4, focus_map_views=8),
-        progress=False,
-    ).interpolate("0,0,1,1", focus=0.1, focus_range=0.2, progress=False)
-    # the test scene is far below the fused estimate's 256-px lane minimum,
-    # so the pyramid route must fall back exactly
-    np.testing.assert_array_equal(out.maps, ref.maps)
-    np.testing.assert_array_equal(out.views, ref.views)
 
 
 def test_loader_single_image_grid(tmp_path, rng):
@@ -394,8 +372,7 @@ def test_cli_quilt_tile_rejected_before_render(scene_dir, tmp_path, capsys):
 
 @pytest.fixture
 def aligned_scene_dir(tmp_path, rng):
-    """A 2x2 grid whose 16x128 views satisfy the fused quilt route's
-    butt-exact canvas constraint (h % 8 == 0, w % 128 == 0)."""
+    """A 2x2 grid of 16x128 views."""
     cols, rows, h, w = 2, 2, 16, 128
     d = tmp_path / "aligned"
     d.mkdir()
@@ -410,9 +387,8 @@ def aligned_scene_dir(tmp_path, rng):
 
 
 def test_render_quilt_fused_matches_two_stage(aligned_scene_dir, monkeypatch):
-    """The fused direct-to-canvas quilt (API surface) must be byte-identical
-    to the two-stage render-all-views + assemble route."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
+    """The quilt-only render (API surface) must be byte-identical to the
+    render-all-views + host-side assembly route."""
     interp = Interpolator(
         aligned_scene_dir, config=RenderConfig(method="TEN", view_count=8),
         progress=False,
@@ -420,7 +396,6 @@ def test_render_quilt_fused_matches_two_stage(aligned_scene_dir, monkeypatch):
     q = interp.render_quilt(
         "0,0,1,1", focus=0.1, cols=2, rows=3, progress=False
     )
-    assert q.fused
     assert q.quilt.shape == (3 * 16, 2 * 128, 3)
     # two-stage reference: full render, host-side assembly of the first 6
     res = interp.interpolate("0,0,1,1", focus=0.1, progress=False)
@@ -436,10 +411,8 @@ def test_render_quilt_fused_matches_two_stage(aligned_scene_dir, monkeypatch):
 
 @pytest.mark.full
 def test_render_quilt_falls_back(scene_dir, monkeypatch):
-    """STD method and unaligned geometry take the two-stage fallback and
-    still produce the correct canvas."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
-    d, _, _ = scene_dir  # 48x64 views: w % 128 != 0 -> no fused route
+    """Both methods on an unaligned geometry produce the correct canvas."""
+    d, _, _ = scene_dir  # 48x64 views
     for m in ("STD", "TEN"):
         interp = Interpolator(
             d, config=RenderConfig(method=m, view_count=8), progress=False
@@ -447,7 +420,6 @@ def test_render_quilt_falls_back(scene_dir, monkeypatch):
         q = interp.render_quilt(
             "0,0,1,1", focus=0.2, cols=2, rows=3, progress=False
         )
-        assert not q.fused
         res = interp.interpolate("0,0,1,1", focus=0.2, progress=False)
         want = np.concatenate(
             [
@@ -469,9 +441,7 @@ def test_render_quilt_too_few_views(scene_dir):
 
 
 def test_cli_quilt_only(aligned_scene_dir, tmp_path, capsys, monkeypatch):
-    """--quilt-only writes quilt.png and NOTHING else, through the fused
-    route when the geometry supports it (json reports fused=true)."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
+    """--quilt-only writes quilt.png and NOTHING else."""
     out = tmp_path / "qonly"
     rc = cli.main(
         ["-i", aligned_scene_dir, "-o", str(out), "-t", "0,0,1,1",
@@ -483,7 +453,6 @@ def test_cli_quilt_only(aligned_scene_dir, tmp_path, capsys, monkeypatch):
     line = capsys.readouterr().out.strip().splitlines()[-1]
     summary = _json.loads(line)
     assert summary["files_written"] == 1
-    assert summary["fused"] is True
     assert sorted(os.listdir(out)) == ["quilt.png"]
     q = codec.decode(str(out / "quilt.png"))[:, :, :3]
     assert q.shape == (9 * 16, 5 * 128, 3)

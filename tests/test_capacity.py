@@ -1,6 +1,6 @@
 """Capacity planning + view-batched rendering (core/capacity.py, api.py).
 
-The reference CUDA tool aborts on >VRAM light fields; the TPU build instead
+The reference CUDA tool aborts on >VRAM light fields; this build instead
 plans host-side (core/capacity.py) and falls back to view-batched rendering
 (outputs stream to the host batch by batch). These tests force tiny budgets
 via LFI_HBM_BYTES to exercise every plan mode on the small fixture.
@@ -15,25 +15,22 @@ from lfinterpolator_tpu.core.config import RenderConfig
 from lfinterpolator_tpu.io.loader import LightField
 from lfinterpolator_tpu.streaming import StreamingRenderer
 
-# small_lf geometry (see conftest) under the default focus bucket: the
-# shift bound rounds up to one 128 bucket, capped at the image size.
-G, C, H, W, PX, PY = 16, 3, 48, 64, 64, 48
+# small_lf geometry (see conftest)
+G, C, H, W = 16, 3, 48, 64
 
 
-def _scan_plans(v=8, use_padded=True, budget_hi=None, dims=None):
+def _scan_plans(v=8, budget_hi=None, dims=None):
     """Plans at descending budgets until even one view no longer fits."""
-    g, c, h, w, px, py = dims or (G, C, H, W, PX, PY)
+    g, c, h, w = dims or (G, C, H, W)
     full = capacity.plan_fixed_render(
-        g, c, h, w, v, px, py, use_padded=use_padded, budget=1 << 40
+        g, c, h, w, v, budget=1 << 40
     ).bytes_unbatched
     hi = budget_hi or (2 * full)
     out = []
     for b in range(hi, 0, -max(1, full // 400)):
         try:
             out.append(
-                (b, capacity.plan_fixed_render(
-                    g, c, h, w, v, px, py, use_padded=use_padded, budget=b
-                ))
+                (b, capacity.plan_fixed_render(g, c, h, w, v, budget=b))
             )
         except ValueError:
             break
@@ -51,33 +48,14 @@ def _first(plans, pred):
 
 def test_plan_modes_are_ordered_by_budget():
     """Descending budget moves monotonically through
-    unbatched -> batched(keep) -> batched(drop) -> infeasible,
-    with non-increasing view batches."""
+    unbatched -> batched -> infeasible, with non-increasing view batches."""
     plans = _scan_plans()
-    modes = [
-        0 if not p.batched else (1 if not p.drop_images else 2)
-        for _, p in plans
-    ]
+    modes = [int(p.batched) for _, p in plans]
     assert modes == sorted(modes)
-    assert set(modes) == {0, 1, 2}, "every mode must be reachable"
-    # Within each mode the batch shrinks with the budget (it may jump UP at
-    # the keep->drop transition: dropping the raw stack frees room).
-    for mode in (1, 2):
-        vbs = [
-            p.view_batch
-            for _, p in plans
-            if p.batched and p.drop_images == (mode == 2)
-        ]
-        assert all(v >= 1 for v in vbs)
-        assert vbs == sorted(vbs, reverse=True)
-
-
-def test_plan_xla_path_never_drops_images():
-    """With use_padded=False every batch re-reads the raw stack, so the
-    plan may batch but must never drop it."""
-    plans = _scan_plans(use_padded=False)
-    assert any(p.batched for _, p in plans)
-    assert not any(p.drop_images for _, p in plans)
+    assert set(modes) == {0, 1}, "every mode must be reachable"
+    vbs = [p.view_batch for _, p in plans if p.batched]
+    assert all(v >= 1 for v in vbs)
+    assert vbs == sorted(vbs, reverse=True)
 
 
 def test_device_hbm_bytes_env_and_cpu(monkeypatch):
@@ -85,6 +63,40 @@ def test_device_hbm_bytes_env_and_cpu(monkeypatch):
     assert capacity.device_hbm_bytes() == 12345678
     monkeypatch.delenv("LFI_HBM_BYTES")
     assert capacity.device_hbm_bytes() == capacity.UNBOUNDED  # CPU backend
+
+
+class _FakeDevice:
+    platform = "gpu"
+    device_kind = "NVIDIA H100 80GB HBM3"
+
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("stats", [None, {}, {"bytes_limit": 0}])
+def test_device_hbm_bytes_raises_without_limit(monkeypatch, stats):
+    """An accelerator that reports no memory limit is an error, never a
+    guessed default."""
+    import jax
+
+    monkeypatch.delenv("LFI_HBM_BYTES", raising=False)
+    monkeypatch.setattr(jax, "local_devices", lambda: [_FakeDevice(stats)])
+    with pytest.raises(RuntimeError, match="reports no memory limit"):
+        capacity.device_hbm_bytes()
+
+
+def test_device_hbm_bytes_reads_accelerator_limit(monkeypatch):
+    import jax
+
+    monkeypatch.delenv("LFI_HBM_BYTES", raising=False)
+    monkeypatch.setattr(
+        jax, "local_devices",
+        lambda: [_FakeDevice({"bytes_limit": 60 * 2**30})],
+    )
+    assert capacity.device_hbm_bytes() == 60 * 2**30
 
 
 def test_check_capacity(monkeypatch):
@@ -103,16 +115,13 @@ def lf(small_lf):
 def test_view_batched_interpolate_matches_unbatched(lf, monkeypatch, method):
     """A budget that forces view batches must not change a single byte
     (per-view blends are independent of the batch split)."""
-    if method == "TEN":
-        monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
     cfg = RenderConfig(method=method, view_count=8)
     ref = Interpolator(lf, config=cfg, progress=False).interpolate(
         "0,0,3,3", focus=0.05, progress=False
     )
 
     b, plan = _first(
-        _scan_plans(use_padded=(method == "TEN")),
-        lambda p: p.batched and not p.drop_images and p.view_batch <= 3,
+        _scan_plans(), lambda p: p.batched and p.view_batch <= 3,
     )
     monkeypatch.setenv("LFI_HBM_BYTES", str(b))
     out = Interpolator(lf, config=cfg, progress=False).interpolate(
@@ -126,15 +135,12 @@ def test_view_batched_interpolate_matches_unbatched(lf, monkeypatch, method):
 def test_view_batched_interpolate_batch(lf, monkeypatch):
     """interpolate_batch's fused multi-trajectory pass also falls back to
     view batches when the stacked weight matrix outgrows the budget."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
     cfg = RenderConfig(method="TEN", view_count=8)
     trajs = ["0,0,3,3", "1,1,2,2", "0,0,3,3"]  # one center -> one fused pass
     ref = Interpolator(lf, config=cfg, progress=False).interpolate_batch(
         trajs, focus=0.05, progress=False
     )
-    b, _ = _first(
-        _scan_plans(v=24), lambda p: p.batched and not p.drop_images
-    )
+    b, _ = _first(_scan_plans(v=24), lambda p: p.batched)
     monkeypatch.setenv("LFI_HBM_BYTES", str(b))
     out = Interpolator(lf, config=cfg, progress=False).interpolate_batch(
         trajs, focus=0.05, progress=False
@@ -143,35 +149,7 @@ def test_view_batched_interpolate_batch(lf, monkeypatch):
         np.testing.assert_array_equal(o.views, r.views)
 
 
-def test_view_batched_drop_images_and_reupload(lf, monkeypatch):
-    """The tightest plan frees the raw device stack during the render;
-    later non-Pallas use re-uploads it transparently."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
-    cfg = RenderConfig(method="TEN", view_count=8)
-    ref = Interpolator(lf, config=cfg, progress=False).interpolate(
-        "0,0,3,3", focus=0.05, progress=False
-    )
-    ref_std = Interpolator(
-        lf, config=RenderConfig(method="STD", view_count=8), progress=False
-    ).interpolate("0,0,3,3", focus=0.05, progress=False)
-
-    b, plan = _first(_scan_plans(), lambda p: p.drop_images)
-    interp = Interpolator(lf, config=cfg, progress=False)
-    monkeypatch.setenv("LFI_HBM_BYTES", str(b))
-    out = interp.interpolate("0,0,3,3", focus=0.05, progress=False)
-    np.testing.assert_array_equal(out.views, ref.views)
-    assert interp.images is None, "raw stack must be dropped under pressure"
-
-    monkeypatch.delenv("LFI_HBM_BYTES")
-    out_std = interp.interpolate(
-        "0,0,3,3", focus=0.05, method="STD", progress=False
-    )
-    assert interp.images is not None, "raw stack must re-upload on demand"
-    np.testing.assert_array_equal(out_std.views, ref_std.views)
-
-
 def test_infeasible_render_raises_before_device_work(lf, monkeypatch):
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
     interp = Interpolator(
         lf, config=RenderConfig(method="TEN", view_count=8), progress=False
     )
@@ -181,11 +159,9 @@ def test_infeasible_render_raises_before_device_work(lf, monkeypatch):
 
 
 def _allfocus_plan_inputs(lf, cfg, traj="0,0,3,3", focus=0.1, frange=0.2):
-    """The same (px, py, fused_blend) the Interpolator will plan with, so
-    budget scans match the render's actual arithmetic."""
+    """The same (px, py) the Interpolator will plan with, so budget scans
+    match the render's actual arithmetic."""
     from lfinterpolator_tpu.core import geometry
-    from lfinterpolator_tpu.models import pipeline
-    from lfinterpolator_tpu.ops import allfocus_pallas
     from lfinterpolator_tpu.ops import focus as focus_ops
 
     se = geometry.parse_trajectory(traj, lf.cols_rows)
@@ -196,28 +172,22 @@ def _allfocus_plan_inputs(lf, cfg, traj="0,0,3,3", focus=0.1, frange=0.2):
     radius = geometry.block_radius(
         lf.width, lf.height, cfg.pixel_size_factor
     )
-    pad = focus_ops.shift_pad_bound(
+    return focus_ops.shift_pad_bound(
         offsets, focus, frange, radius, lf.height, lf.width
     )
-    spread = allfocus_pallas.spread_bound(offsets, focus, frange)
-    method_key = "TEN" if cfg.method in ("TEN", "TEN_WM") else "STD"
-    fused = pipeline.allfocus_uses_fused_blend(
-        method_key, lf.height, lf.width, spread
-    )
-    return pad[0], pad[1], fused
 
 
-def _scan_allfocus_plans(v=8, k=8, px=1, py=1, fused_blend=False):
-    kw = dict(px=px, py=py, fused_blend=fused_blend)
+def _scan_allfocus_plans(v=8, k=8, px=1, py=1, dims=None, divisor=400):
+    g, h, w = dims or (G, H, W)
     full = capacity.plan_allfocus_render(
-        G, k, C, H, W, v, budget=1 << 40, **kw
+        g, k, C, h, w, v, px=px, py=py, budget=1 << 40
     ).bytes_unbatched
     out = []
-    for b in range(2 * full, 0, -max(1, full // 400)):
+    for b in range(2 * full, 0, -max(1, full // divisor)):
         try:
             out.append(
                 (b, capacity.plan_allfocus_render(
-                    G, k, C, H, W, v, budget=b, **kw
+                    g, k, C, h, w, v, px=px, py=py, budget=b
                 ))
             )
         except ValueError:
@@ -238,7 +208,6 @@ def test_view_batched_allfocus_matches_unbatched(lf, monkeypatch, method):
     estimate/select phases (the plan correctly refuses budgets the
     view-independent phases cannot fit), so the test needs a large
     view_count relative to the tiny fixture."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
     v = 64
     cfg = RenderConfig(
         method=method, view_count=v, focus_map_views=8,
@@ -247,14 +216,9 @@ def test_view_batched_allfocus_matches_unbatched(lf, monkeypatch, method):
         "0,0,3,3", focus=0.1, focus_range=0.2, progress=False
     )
     assert ref.maps is not None
-    # the fixture is 64 wide < the fused kernel's 128-lane minimum, so both
-    # methods run the XLA select here (TEN via map0/steps levels, STD via
-    # map1/all-bytes); the fused engine is covered by
-    # test_view_batched_allfocus_fused below
-    px, py, fused = _allfocus_plan_inputs(lf, cfg)
-    assert not fused
+    px, py = _allfocus_plan_inputs(lf, cfg)
     b, plan = _first(
-        _scan_allfocus_plans(v=v, px=px, py=py, fused_blend=fused),
+        _scan_allfocus_plans(v=v, px=px, py=py),
         # a non-divisor batch exercises the zero-padded trailing rows
         lambda p: p.batched and v % p.view_batch != 0,
     )
@@ -273,7 +237,6 @@ def test_view_batched_interpolate_batch_allfocus(lf, monkeypatch):
     """interpolate_batch with focus_range: the group's stacked all-focus
     pass falls back to view batches under pressure -- byte-identical to the
     unbatched batch (shared maps included)."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
     # view_count=24 x 3 same-center trajectories = 72 stacked rows, enough
     # for the output term to dominate the select phase on the fixture
     cfg = RenderConfig(method="STD", view_count=24, focus_map_views=8)
@@ -282,9 +245,9 @@ def test_view_batched_interpolate_batch_allfocus(lf, monkeypatch):
         trajs, focus=0.1, focus_range=0.2, progress=False
     )
     assert ref[0].maps is not None
-    px, py, fused = _allfocus_plan_inputs(lf, cfg)
+    px, py = _allfocus_plan_inputs(lf, cfg)
     b, plan = _first(
-        _scan_allfocus_plans(v=72, px=px, py=py, fused_blend=fused),
+        _scan_allfocus_plans(v=72, px=px, py=py),
         lambda p: p.batched,
     )
     monkeypatch.setenv("LFI_HBM_BYTES", str(b))
@@ -296,97 +259,21 @@ def test_view_batched_interpolate_batch_allfocus(lf, monkeypatch):
         np.testing.assert_array_equal(o.views, r.views)
 
 
-@pytest.mark.full
-@pytest.mark.parametrize("method", ["TEN", "STD"])
-def test_view_batched_allfocus_fused(rng, monkeypatch, method):
-    """The fused-kernel (>=128-lane) all-focus engine under a batched
-    plan: select_allfocus returns the tiled x4 stack and blend_selected
-    contracts it per batch -- byte-identical to the unbatched fused render.
-    Both methods since round 5 (STD runs the kernel's 256-byte-level mode
-    on the filtered map), so the batched/drop arms are pinned for each."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
-    cols = rows = 3
-    h, w, v = 96, 160, 64  # >= the kernel's 128-lane / spread-window minima
-    images = rng.integers(0, 256, size=(cols * rows, h, w, 4), dtype=np.uint8)
-    lf = LightField(images=images, cols=cols, rows=rows)
-    # focus_map_views=4 keeps the estimate phase below the select phase so
-    # the drop regime (select infeasible, drop feasible) is non-empty
-    cfg = RenderConfig(method=method, view_count=v, focus_map_views=4)
-    ref = Interpolator(lf, config=cfg, progress=False).interpolate(
-        "0,0,2,2", focus=0.1, focus_range=0.2, progress=False
-    )
-    px, py, fused = _allfocus_plan_inputs(lf, cfg, traj="0,0,2,2")
-    assert fused, "geometry must route through the fused kernel"
-
-    def scan(divisor=400):
-        kw = dict(px=px, py=py, fused_blend=True)
-        full = capacity.plan_allfocus_render(
-            cols * rows, 4, C, h, w, v, budget=1 << 40, **kw
-        ).bytes_unbatched
-        for b in range(2 * full, 0, -max(1, full // divisor)):
-            try:
-                yield b, capacity.plan_allfocus_render(
-                    cols * rows, 4, C, h, w, v, budget=b, **kw
-                )
-            except ValueError:
-                return
-
-    b, plan = _first(
-        list(scan()), lambda p: p.batched and v % p.view_batch != 0
-    )
-    monkeypatch.setenv("LFI_HBM_BYTES", str(b))
-    out = Interpolator(lf, config=cfg, progress=False).interpolate(
-        "0,0,2,2", focus=0.1, focus_range=0.2, progress=False
-    )
-    np.testing.assert_array_equal(out.maps, ref.maps)
-    np.testing.assert_array_equal(out.views, ref.views)
-
-    # Tighter still: the fused drop arm (estimate from the raw stack,
-    # tile, DROP the raw stack, select, blend batches) -- byte-identical
-    # and the raw device stack must be gone afterwards.
-    b2, plan2 = _first(list(scan()), lambda p: p.drop_images)
-    assert plan2.batched
-    monkeypatch.setenv("LFI_HBM_BYTES", str(b2))
-    interp = Interpolator(lf, config=cfg, progress=False)
-    out2 = interp.interpolate(
-        "0,0,2,2", focus=0.1, focus_range=0.2, progress=False,
-        benchmark_runs=1,  # the repetition re-uploads the dropped stack
-    )
-    np.testing.assert_array_equal(out2.maps, ref.maps)
-    np.testing.assert_array_equal(out2.views, ref.views)
-    assert interp.images is None, "raw stack must be dropped under pressure"
-
-    # Tightest: the drop arm composed with a row-blocked estimate (the full
-    # padded selected-views copy no longer fits either). The regime window
-    # is narrow, so scan finely.
-    b4, plan4 = _first(
-        list(scan(8000)),
-        lambda p: p.drop_images and p.estimate_row_block is not None,
-    )
-    monkeypatch.setenv("LFI_HBM_BYTES", str(b4))
-    out4 = Interpolator(lf, config=cfg, progress=False).interpolate(
-        "0,0,2,2", focus=0.1, focus_range=0.2, progress=False
-    )
-    np.testing.assert_array_equal(out4.maps, ref.maps)
-    np.testing.assert_array_equal(out4.views, ref.views)
-
-
 @pytest.mark.parametrize("method", ["TEN", "STD"])
 @pytest.mark.full
 def test_view_batched_allfocus_row_blocked(lf, monkeypatch, method):
-    """Budgets too tight for the full-stack select (its padded copy + scan
-    carry) fall back to row-blocked selection: select_allfocus_rows rebuilds
-    each block's pad window from the raw stack -- byte-identical views and
-    maps, never materializing the full padded copy."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
-    cfg = RenderConfig(method=method, view_count=8, focus_map_views=8)
+    """Budgets too tight for the full-stack select (its gathered stack and
+    widened blend operand) fall back to row-blocked selection: each block
+    gathers only its rows -- byte-identical views and maps. Four focus
+    views keep the estimate phase below the select/blend phases, as on
+    large frames (G >> K)."""
+    cfg = RenderConfig(method=method, view_count=8, focus_map_views=4)
     ref = Interpolator(lf, config=cfg, progress=False).interpolate(
         "0,0,3,3", focus=0.1, focus_range=0.2, progress=False
     )
-    px, py, fused = _allfocus_plan_inputs(lf, cfg)
-    assert not fused  # the fixture is below the fused kernel's minima
+    px, py = _allfocus_plan_inputs(lf, cfg)
     b, plan = _first(
-        _scan_allfocus_plans(px=px, py=py),
+        _scan_allfocus_plans(k=4, px=px, py=py),
         lambda p: p.row_block is not None,
     )
     assert plan.row_block < H  # genuinely block-by-block
@@ -404,10 +291,7 @@ def test_view_batched_allfocus_row_blocked_estimate(rng, monkeypatch):
     """Budgets too tight even for the estimate's full padded selected-views
     copy row-block the estimate as well (estimate_focus_rows pads per
     block) -- byte-identical maps and views."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
     cols = rows = 3
-    # w < 128 keeps the fused kernel unsupported so this test pins the XLA
-    # row-blocked arm (since round 5 STD routes fused where supported);
     # h=144 keeps a budget window where the select fits full-frame but the
     # estimate's padded copy must row-block
     h, w, v, k = 144, 120, 8, 9
@@ -417,28 +301,13 @@ def test_view_batched_allfocus_row_blocked_estimate(rng, monkeypatch):
     ref = Interpolator(lf, config=cfg, progress=False).interpolate(
         "0,0,2,2", focus=0.1, focus_range=0.2, progress=False
     )
-    px, py, fused = _allfocus_plan_inputs(lf, cfg, traj="0,0,2,2")
-    assert not fused  # the fixture is below the fused kernel's minima
-
-    def scan():
-        kw = dict(px=px, py=py, fused_blend=False)
-        full = capacity.plan_allfocus_render(
-            cols * rows, k, C, h, w, v, budget=1 << 40, **kw
-        ).bytes_unbatched
-        for b in range(2 * full, 0, -max(1, full // 2000)):
-            try:
-                yield b, capacity.plan_allfocus_render(
-                    cols * rows, k, C, h, w, v, budget=b, **kw
-                )
-            except ValueError:
-                return
-
-    plans = list(scan())
+    px, py = _allfocus_plan_inputs(lf, cfg, traj="0,0,2,2")
+    plans = _scan_allfocus_plans(
+        v=v, k=k, px=px, py=py, dims=(cols * rows, h, w), divisor=2000
+    )
     # The estimate's blocking is decided independently of the select's, so
     # the first pressured regime may block ONLY the estimate (full-frame
-    # select, batched blend). The combined select+estimate row-block regime
-    # needs select >> estimate residents (g >> k) and is covered by
-    # test_view_batched_allfocus_fused_slab_estimate.
+    # select, batched blend).
     b, plan = _first(plans, lambda p: p.estimate_row_block is not None)
     monkeypatch.setenv("LFI_HBM_BYTES", str(b))
     out = Interpolator(lf, config=cfg, progress=False).interpolate(
@@ -460,14 +329,10 @@ def test_view_batched_allfocus_row_blocked_estimate(rng, monkeypatch):
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.full
 def test_view_batched_allfocus_fused_slab_estimate(rng, monkeypatch, exact):
-    """The plan prefers the FUSED row-blocked estimate (estimate_fused=True
-    with estimate_row_block set) when the geometry supports it, and the
-    render -- the fused kernels' slab mode via estimate_focus_rows -- stays
-    byte-identical to the unpressured run. The fixture needs w >= 256 (the
-    fused estimate's lane minimum) and h >> 2py (each block pays the full
-    2py pad overhang, so blocking only shrinks the operand -- and the
-    fused-rb budget window only exists -- on tall frames)."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
+    """The row-blocked estimate (estimate_focus_rows builds each block's
+    padded slab) is byte-identical to the unpressured run for both tap
+    rules, on a frame tall enough (h >> 2py) that blocking the estimate
+    actually shrinks its padded operand."""
     cols = rows = 3
     h, w, v, k = 512, 256, 4, 4
     images = rng.integers(0, 256, size=(cols * rows, h, w, 4), dtype=np.uint8)
@@ -479,67 +344,20 @@ def test_view_batched_allfocus_fused_slab_estimate(rng, monkeypatch, exact):
     ref = Interpolator(lf, config=cfg, progress=False).interpolate(
         "0,0,2,2", focus=0.1, focus_range=0.2, progress=False
     )
-    px, py, fused = _allfocus_plan_inputs(lf, cfg, traj="0,0,2,2")
-
-    from lfinterpolator_tpu.core import geometry
-    from lfinterpolator_tpu.ops import estimate_pallas
-
-    se = geometry.parse_trajectory("0,0,2,2", lf.cols_rows)
-    offsets = geometry.compute_offsets(
-        cols, rows, w, h, cfg.aspect, geometry.trajectory_center(se)
-    )
-    radius = geometry.block_radius(w, h, cfg.pixel_size_factor)
-    spans = estimate_pallas.chunk_spans(
-        offsets, 0.1, 0.2, cfg.focus_steps, 4
-    )
-    est_cb = estimate_pallas.slab_bytes_fn(
-        h, w, k, C, cfg.focus_steps, radius, spans, px, py,
-        exact_taps=exact,
-    )
-    assert est_cb is not None and est_cb(h) is not None
-
-    def scan():
-        kw = dict(
-            px=px, py=py, fused_blend=fused, est_fused_bytes=est_cb
-        )
-        full = capacity.plan_allfocus_render(
-            cols * rows, k, C, h, w, v, budget=1 << 40, **kw
-        ).bytes_unbatched
-        for b in range(2 * full, 0, -max(1, full // 4000)):
-            try:
-                yield b, capacity.plan_allfocus_render(
-                    cols * rows, k, C, h, w, v, budget=b, **kw
-                )
-            except ValueError:
-                return
-
+    px, py = _allfocus_plan_inputs(lf, cfg, traj="0,0,2,2")
     b, plan = _first(
-        list(scan()),
-        lambda p: p.estimate_row_block is not None and p.estimate_fused,
+        _scan_allfocus_plans(
+            v=v, k=k, px=px, py=py, dims=(cols * rows, h, w), divisor=4000
+        ),
+        lambda p: p.estimate_row_block is not None,
     )
+    assert plan.estimate_row_block < h
     monkeypatch.setenv("LFI_HBM_BYTES", str(b))
     out = Interpolator(lf, config=cfg, progress=False).interpolate(
         "0,0,2,2", focus=0.1, focus_range=0.2, progress=False
     )
     np.testing.assert_array_equal(out.maps, ref.maps)
     np.testing.assert_array_equal(out.views, ref.views)
-
-    # tighter: a budget where even the fused slab blocks no longer fit at
-    # any size must fall back to the XLA engine (estimate_fused=False) --
-    # and still render byte-identically
-    plans = list(scan())
-    got = [
-        (bb, p) for bb, p in plans
-        if p.estimate_row_block is not None and not p.estimate_fused
-    ]
-    if got:  # the XLA-only window can be empty on some geometries
-        b2, _ = got[0]
-        monkeypatch.setenv("LFI_HBM_BYTES", str(b2))
-        out2 = Interpolator(lf, config=cfg, progress=False).interpolate(
-            "0,0,2,2", focus=0.1, focus_range=0.2, progress=False
-        )
-        np.testing.assert_array_equal(out2.maps, ref.maps)
-        np.testing.assert_array_equal(out2.views, ref.views)
 
 
 def test_allfocus_infeasible_raises(lf, monkeypatch):
@@ -558,9 +376,9 @@ def test_allfocus_infeasible_raises(lf, monkeypatch):
     "h,w,v", [(45, 130, 5), (40, 160, 3), (56, 64, 1)]
 )
 def test_view_batched_fuzz_geometries(rng, monkeypatch, h, w, v):
-    """Batched == unbatched across unaligned geometries, non-divisor
-    batch tails, and a single-view render."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
+    """Batched == unbatched across unaligned geometries and non-divisor
+    batch tails; a single-view render (which cannot batch) renders exactly
+    at the tightest budget that still fits it."""
     cols = rows = 3
     images = rng.integers(0, 256, size=(cols * rows, h, w, 4), dtype=np.uint8)
     lf = LightField(images=images, cols=cols, rows=rows)
@@ -568,11 +386,12 @@ def test_view_batched_fuzz_geometries(rng, monkeypatch, h, w, v):
     ref = Interpolator(lf, config=cfg, progress=False).interpolate(
         "0,0,2,2", focus=0.07, progress=False
     )
-    dims = (cols * rows, 3, h, w, min(128, w), min(128, h))
-    b, plan = _first(
-        _scan_plans(v=v, dims=dims),
-        lambda p: p.batched and p.view_batch < max(v, 2),
-    )
+    plans = _scan_plans(v=v, dims=(cols * rows, 3, h, w))
+    if v > 1:
+        b, _ = _first(plans, lambda p: p.batched and p.view_batch < v)
+    else:
+        b, plan = plans[-1]
+        assert not plan.batched
     monkeypatch.setenv("LFI_HBM_BYTES", str(b))
     out = Interpolator(lf, config=cfg, progress=False).interpolate(
         "0,0,2,2", focus=0.07, progress=False

@@ -32,6 +32,23 @@ def test_encode_rejects_bad_shape(tmp_path):
         codec.encode_png(str(tmp_path / "x.png"), np.zeros((4, 4), np.uint8))
 
 
+@pytest.mark.parametrize("op", ["decode", "encode"])
+def test_no_codec_is_a_clear_error(tmp_path, rng, monkeypatch, op):
+    """Without the native library and without Pillow, reading or writing
+    an image fails with an error that names both ways to get a codec."""
+    import sys
+
+    p = str(tmp_path / "n.png")
+    codec._encode_pil(p, rng.integers(0, 256, (6, 8, 4), dtype=np.uint8))
+    monkeypatch.setattr(codec, "_load_native", lambda: None)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(RuntimeError, match="make -C native.*Pillow"):
+        if op == "decode":
+            codec.decode(p)
+        else:
+            codec.encode_png(p, np.zeros((4, 4, 4), np.uint8))
+
+
 @pytest.mark.skipif(not codec.native_available(), reason="native codec not built")
 class TestNative:
     def test_roundtrip(self, tmp_path, rng):

@@ -183,40 +183,6 @@ def test_estimate_exact_requires_pad():
 
 
 @pytest.mark.full
-def test_tap_dtype_variants_bit_identical(rng):
-    """tap_dtype only changes the vector width XLA runs at; maps must be
-    bit-identical across all choices (taps are 0..255 integers, exact in
-    every supported dtype)."""
-    import jax.numpy as jnp
-    from lfinterpolator_tpu.core import geometry
-    from lfinterpolator_tpu.ops import focus as focus_ops
-
-    cols = rows = 4
-    h, w, k = 64, 192, 8
-    se = np.array([0.0, 0.0, 3.0, 3.0], np.float32)
-    offsets = geometry.compute_offsets(
-        cols, rows, w, h, 1.0, geometry.trajectory_center(se)
-    )
-    ids = geometry.select_focus_views(se, cols, rows, k)
-    sel_off = jnp.asarray(offsets[np.asarray(ids)])
-    radius = geometry.block_radius(w, h)
-    pad = focus_ops.shift_pad_bound(offsets, 0.1, 0.3, radius, h, w)
-    selected = jnp.asarray(rng.integers(0, 256, (k, 3, h, w), np.uint8))
-    for exact in (True, False):
-        ref = None
-        for dt in ("u8", "i16", "bf16", "f32"):
-            m = np.asarray(
-                focus_ops.estimate_focus_map(
-                    selected, sel_off, jnp.float32(0.1), jnp.float32(0.3),
-                    radius, steps=8, pad=pad, exact_taps=exact, tap_dtype=dt,
-                )
-            )
-            if ref is None:
-                ref = m
-            np.testing.assert_array_equal(m, ref)
-
-
-@pytest.mark.full
 def test_estimate_focus_rows_blocks_match_full(rng):
     """pipeline.estimate_focus_rows (row-slab mode: each block's pad window
     rebuilt from the selected views) concatenates to exactly the full

@@ -35,58 +35,23 @@ def test_quilt_too_few_views(rng):
         quilt.assemble_quilt(jnp.asarray(views), cols=5, rows=9)
 
 
-def test_blend_quilt_matches_blend_then_assemble(rng, monkeypatch):
-    """The fused direct-to-canvas quilt blend equals blend_tiled followed
-    by the copy assembly bit for bit (same K ordering per view)."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
-    from lfinterpolator_tpu.ops import blend_pallas as bp
-
-    g, c, h8, w128 = 9, 3, 16, 256
-    cols, rows = 2, 3
-    x4 = jnp.asarray(rng.integers(0, 256, (g, c, h8, w128), dtype=np.uint8))
-    wm = rng.random((8, g)).astype(np.float32)
-    weights = jnp.asarray(wm / wm.sum(axis=1, keepdims=True))
-    assert bp.supports_quilt(h8, w128, g)
-    got = np.asarray(bp.blend_quilt(x4, weights, cols=cols, rows=rows))
-    assert got.shape == (c, rows * h8, cols * w128)
-    want = np.asarray(
-        quilt.assemble_quilt(bp.blend_tiled(x4, weights), cols=cols, rows=rows)
-    )
-    np.testing.assert_array_equal(got, want)
-
-
-def test_render_fixed_quilt_padded_matches_two_stage(rng, monkeypatch):
-    """Quilt-only fused render (shift + direct-to-canvas blend) equals the
-    render-views-then-assemble route exactly."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
-    from lfinterpolator_tpu.ops import blend_pallas as bp
-
-    g, c, h, w = 9, 3, 32, 256
-    cols, rows = 2, 2
-    px, py = 4, 4
-    images = jnp.asarray(rng.integers(0, 256, (g, c, h, w), dtype=np.uint8))
-    padded = bp.pad_images(images, px, py)
-    fo = jnp.asarray(
-        rng.integers(-3, 4, size=(g, 2)).astype(np.int32)
-    )
-    wm = rng.random((cols * rows, g)).astype(np.float32)
-    weights = jnp.asarray(wm / wm.sum(axis=1, keepdims=True))
-    assert quilt.supports_fused_render(h, w, g)
+@pytest.mark.parametrize(
+    "v,h,w,cols,rows",
+    [(6, 16, 128, 2, 3), (45, 5, 7, 5, 9), (12, 9, 33, 4, 3), (8, 1, 1, 2, 2)],
+)
+def test_quilt_matches_numpy_montage(rng, v, h, w, cols, rows):
+    """The canvas equals a host montage of the first cols*rows views
+    (row-major, no resize), for aligned, odd and degenerate tiles."""
+    views = rng.integers(0, 256, size=(v, 3, h, w), dtype=np.uint8)
     got = np.asarray(
-        quilt.render_fixed_quilt_padded(
-            padded, weights, fo, cols=cols, rows=rows, h=h, w=w, px=px, py=py
-        )
+        quilt.assemble_quilt(jnp.asarray(views), cols=cols, rows=rows)
     )
-    views = bp.render_fixed_padded(padded, weights, fo, h=h, w=w, px=px, py=py)
-    want = np.asarray(quilt.assemble_quilt(views, cols=cols, rows=rows))
+    want = np.concatenate(
+        [np.concatenate(list(views[r * cols : (r + 1) * cols]), axis=2)
+         for r in range(rows)],
+        axis=1,
+    )
     np.testing.assert_array_equal(got, want)
-
-
-def test_supports_quilt_gates_unaligned():
-    from lfinterpolator_tpu.ops import blend_pallas as bp
-
-    assert not bp.supports_quilt(1079, 1920, 64)  # h % 8 != 0
-    assert not bp.supports_quilt(1080, 1921, 64)  # w % 128 != 0
 
 
 def test_psnr_identical_and_known(rng):
@@ -111,30 +76,14 @@ def test_metrics_shape_mismatch(rng):
         metrics.psnr(*a)
 
 
-def test_quilt_pallas_matches_dus(rng, monkeypatch):
-    """The aligned-tile Pallas copy path equals the dynamic_update_slice
-    canvas bit for bit (including band splitting)."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
-    from lfinterpolator_tpu.ops import quilt as q
-
-    views = jnp.asarray(
-        rng.integers(0, 256, (8, 3, 16, 128), dtype=np.uint8)
+def test_quilt_same_size_tile_is_a_copy(rng):
+    """tile_size equal to the view size takes no resize."""
+    views = jnp.asarray(rng.integers(0, 256, (8, 3, 16, 24), dtype=np.uint8))
+    a = np.asarray(quilt.assemble_quilt(views, cols=2, rows=3))
+    b = np.asarray(
+        quilt.assemble_quilt(views, cols=2, rows=3, tile_size=(16, 24))
     )
-    got = np.asarray(q.assemble_quilt(views, cols=2, rows=3))
-    # force the fallback for the reference result
-    monkeypatch.setattr(q, "_pick_bh", lambda *a, **k: None)
-    want = np.asarray(
-        q.assemble_quilt.__wrapped__(views, cols=2, rows=3)
-    )
-    np.testing.assert_array_equal(got, want)
-    # band-split variant (bh < th) also matches
-    monkeypatch.undo()
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
-    monkeypatch.setattr(q, "_pick_bh", lambda th, tw, budget=0: 8)
-    got_b = np.asarray(
-        q.assemble_quilt.__wrapped__(views, cols=2, rows=3)
-    )
-    np.testing.assert_array_equal(got_b, want)
+    np.testing.assert_array_equal(a, b)
 
 
 # ---------------------------------------------------------------------------

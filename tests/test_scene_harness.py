@@ -112,10 +112,9 @@ def test_occlusion_scene_properties(rng):
 
 
 @pytest.mark.full
-def test_occlusion_scene_pipeline_parity(rng, monkeypatch):
+def test_occlusion_scene_pipeline_parity(rng):
     """Exact estimate + both blends on the occlusion scene match the CPU
     oracle bit-for-bit (content must not affect parity)."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
     import jax.numpy as jnp
     from lfinterpolator_tpu.core import geometry
     from lfinterpolator_tpu.models import pipeline

@@ -99,6 +99,39 @@ def test_views_to_quilt_script(tmp_path, rng):
     assert q.shape == (16, 30, 4)
 
 
+@pytest.mark.parametrize("scene", ["plane", "occlusion"])
+def test_quality_gate_script(scene):
+    """The quality gate passes at a small size on both scenes: every gated
+    path >= 45 dB against the oracle, --fast-focus reported alongside."""
+    out = subprocess.run(
+        [sys.executable, f"{REPO}/scripts/quality_gate.py", "--size",
+         "24x40", "--grid", "4x4", "--scene", scene],
+        capture_output=True, text=True, env=ENV, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["pass"] is True
+    assert set(summary["psnr_db"]) == {
+        "fixed/STD", "fixed/TEN", "allfocus/STD", "allfocus/TEN",
+        "allfocus-fast/STD", "allfocus-fast/TEN",
+    }
+
+
+def test_validate_batching_script():
+    """Every reachable batched arm is byte-identical to the unbatched
+    render at a small size."""
+    out = subprocess.run(
+        [sys.executable, f"{REPO}/scripts/validate_batching.py", "--size",
+         "24x40", "--grid", "4x4"],
+        capture_output=True, text=True, env=ENV, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "batched_arm_failures": 0
+    }
+    assert "views_eq=True" in out.stdout
+
+
 def test_benchmark_harness():
     calls = []
 
@@ -135,7 +168,7 @@ def test_map_refresh_quality_harness(tmp_path):
             "--speed", "2", "--refresh", "3", "--steps", "8",
         ],
         capture_output=True, text=True,
-        env=dict(ENV, LFI_PALLAS_INTERPRET="1"), timeout=600,
+        env=ENV, timeout=600,
     )
     assert out.returncode == 0, out.stderr[-2000:]
     summary = json.loads(out.stdout.strip().splitlines()[-1])

@@ -42,10 +42,8 @@ def test_stream_matches_per_frame_oracle(rng):
         assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
-def test_stream_ten_uses_fused_shift_kernel(rng, monkeypatch):
-    """The TEN streaming path routes through shift_pallas (fused clamp-shift
-    from the raw stack, no pad pass) and stays within 1 LSB of the oracle."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
+def test_stream_ten_matches_oracle(rng):
+    """The TEN (fp16 tensor-core) stream stays within 1 LSB of the oracle."""
     cols = rows = 2
     h, w, v = 32, 256, 4
     frames = _frames(rng, 2, cols * rows, h, w)
@@ -53,7 +51,6 @@ def test_stream_ten_uses_fused_shift_kernel(rng, monkeypatch):
         cols, rows, w, h, "0.0,0.0,1.0,1.0",
         config=RenderConfig(view_count=v, focus=0.4, method="TEN"),
     )
-    assert sr._use_pallas and sr._use_tiled
     outs = list(sr.render_stream(iter(frames)))
 
     se = geometry.parse_trajectory("0.0,0.0,1.0,1.0", (cols, rows))
@@ -148,7 +145,7 @@ def test_stream_allfocus_matches_pipeline(rng):
     import jax.numpy as jnp
 
     from lfinterpolator_tpu.models import pipeline
-    from lfinterpolator_tpu.ops import allfocus_pallas, blend_xla
+    from lfinterpolator_tpu.ops import blend_xla
     from lfinterpolator_tpu.ops import focus as focus_ops
 
     cols = rows = 2
@@ -181,14 +178,13 @@ def test_stream_allfocus_matches_pipeline(rng):
     pad = focus_ops.shift_pad_bound(
         offsets, cfg.focus, cfg.focus_range, radius, h, w
     )
-    spread = allfocus_pallas.spread_bound(offsets, cfg.focus, cfg.focus_range)
     for frame, (views, maps) in zip(frames, outs):
         planar = blend_xla.to_planar(jnp.asarray(frame))
         want_views, want_maps = pipeline.render_all_focus(
             planar, jnp.asarray(wm), jnp.asarray(offsets),
             jnp.float32(cfg.focus), jnp.float32(cfg.focus_range), ids,
             method="STD", radius=radius, filter_radius=frad,
-            steps=cfg.focus_steps, pad=pad, spread=spread,
+            steps=cfg.focus_steps, pad=pad,
         )
         np.testing.assert_array_equal(maps, np.asarray(want_maps))
         np.testing.assert_array_equal(
@@ -197,14 +193,12 @@ def test_stream_allfocus_matches_pipeline(rng):
 
 
 @pytest.mark.full
-def test_stream_allfocus_ten_kernel(rng, monkeypatch):
-    """The TEN all-focus stream (fused kernel in interpret mode) matches the
-    non-streaming TEN pipeline."""
-    monkeypatch.setenv("LFI_PALLAS_INTERPRET", "1")
+def test_stream_allfocus_ten_kernel(rng):
+    """The TEN all-focus stream matches the non-streaming TEN pipeline."""
     import jax.numpy as jnp
 
     from lfinterpolator_tpu.models import pipeline
-    from lfinterpolator_tpu.ops import allfocus_pallas, blend_xla
+    from lfinterpolator_tpu.ops import blend_xla
     from lfinterpolator_tpu.ops import focus as focus_ops
 
     cols = rows = 2
@@ -235,13 +229,12 @@ def test_stream_allfocus_ten_kernel(rng, monkeypatch):
     pad = focus_ops.shift_pad_bound(
         offsets, cfg.focus, cfg.focus_range, radius, h, w
     )
-    spread = allfocus_pallas.spread_bound(offsets, cfg.focus, cfg.focus_range)
     planar = blend_xla.to_planar(jnp.asarray(frames[0]))
     want_views, want_maps = pipeline.render_all_focus(
         planar, jnp.asarray(wm), jnp.asarray(offsets),
         jnp.float32(cfg.focus), jnp.float32(cfg.focus_range), ids,
         method="TEN", radius=radius, filter_radius=frad,
-        steps=cfg.focus_steps, pad=pad, spread=spread,
+        steps=cfg.focus_steps, pad=pad,
     )
     np.testing.assert_array_equal(maps, np.asarray(want_maps))
     np.testing.assert_array_equal(
@@ -277,7 +270,7 @@ def test_stream_allfocus_map_refresh(rng):
     import jax.numpy as jnp
 
     from lfinterpolator_tpu.models import pipeline
-    from lfinterpolator_tpu.ops import allfocus_pallas, blend_xla
+    from lfinterpolator_tpu.ops import blend_xla
     from lfinterpolator_tpu.ops import focus as focus_ops
 
     cols = rows = 2
@@ -309,7 +302,6 @@ def test_stream_allfocus_map_refresh(rng):
     pad = focus_ops.shift_pad_bound(
         offsets, cfg.focus, cfg.focus_range, radius, h, w
     )
-    spread = allfocus_pallas.spread_bound(offsets, cfg.focus, cfg.focus_range)
     offj = jnp.asarray(offsets)
     anchors = {}
     for t in range(n):
@@ -327,7 +319,6 @@ def test_stream_allfocus_map_refresh(rng):
             blend_xla.to_planar(jnp.asarray(frames[t])), jnp.asarray(wm),
             offj, anchors[a], jnp.float32(cfg.focus),
             jnp.float32(cfg.focus_range), method="STD",
-            steps=cfg.focus_steps, pad=pad, spread=spread,
         )
         np.testing.assert_array_equal(
             views, np.asarray(blend_xla.from_planar(want))
